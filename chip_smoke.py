@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch / CUDA port on one NVIDIA card (an H100).
+
+    python3 chip_smoke.py
+
+Phases, each printing its own line:
+  1. the card's name and power limit, as nvidia-smi gives them;
+  2. build: nvcc compiles hifigan_tpu_torch/csrc/*.cu (seconds taken);
+  3. kernel check: the GRC-step kernel against its plain PyTorch version at
+     the flagship's MRF shape [8, 65536, 32], for all nine (k, d) steps,
+     with neutral and normalised statistics, in fp32 and bf16;
+  4. generator: the flagship generator (full config, every parameter
+     redrawn from a seed as N(0, 0.3^2/fan)) at batch 8 x 256 mel frames in
+     bf16, once through the kernel and once through the plain path; the
+     kernel must launch 9 times in that run, and dropping the MRF taps must
+     move the output by more than the tolerance the two paths are held to;
+  5. timing: CUDA events, median of 25 runs after warm-up, for each step
+     (kernel, plain version, F.conv1d of the same dilated conv) and for the
+     whole forward;
+  6. trace: torch.profiler over 10 forwards of the kernel path: the device's
+     busy share of the window, launches per forward, the forward's peak
+     device memory and device time per kernel family.
+Then one JSON line describing the kernel, and last the result line
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
+without a CUDA card it exits non-zero before printing anything.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from hifigan_tpu_torch import GeneratorConfig, build_generator
+from hifigan_tpu_torch.ops.cuda import build, grc_kernel
+from hifigan_tpu_torch.ops.grc_lora import group_stats
+
+BATCH, FRAMES, SAMPLE_RATE, HOP = 8, 256, 22050, 256
+C, GROUPS = 32, 4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 CUDA cores, bf16 tensor cores
+RUNS, WARMUP = 25, 3
+TRACED_FORWARDS = 10
+T_AUDIO = FRAMES * HOP
+
+
+def _time_ms(fn) -> float:
+    """Median device time of one call, from CUDA events around each run."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _redraw_parameters(model: torch.nn.Module, seed: int) -> None:
+    """Redraw every parameter as N(0, 0.3^2/fan), fan = the product of all
+    but the last dim (1 for vectors), as the CPU tests do: the zero-init
+    biases and LoRA B take part, and the fused MRF taps weigh many bf16
+    ulps against the residual."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            fan = math.prod(p.shape[:-1]) if p.dim() > 1 else 1
+            p.copy_(torch.randn(p.shape, generator=g, device=p.device) * (0.3 / fan ** 0.5))
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    if "grc_step_kernel" in low:
+        return "grc_step (CUDA kernel)"
+    if any(w in low for w in ("conv", "cudnn", "xmma", "gemm", "sm90")):
+        return "convolutions and matmuls (cuDNN / cuBLAS)"
+    return "elementwise, reductions, copies"
+
+
+def _trace(fn) -> dict:
+    """Trace TRACED_FORWARDS calls of ``fn`` with torch.profiler: the device's
+    busy share of the window (union of kernel intervals over the window's
+    CUDA-event time), launches per call, the peak device memory the calls
+    take above what was allocated before them, and device ms per call for
+    each kernel family and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TRACED_FORWARDS):
+            fn()
+        end.record()
+        end.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us, cur_s = busy_us + cur_e - cur_s, s
+        cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    by_name, by_family = {}, {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / TRACED_FORWARDS
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        by_family[_family(e.name)] = by_family.get(_family(e.name), 0.0) + ms
+    window_ms = start.elapsed_time(end)
+    return {
+        "traced_forwards": TRACED_FORWARDS,
+        "window_ms": window_ms,
+        "device_busy_share": busy_us / 1e3 / window_ms,
+        "launches_per_forward": len(kernels) / TRACED_FORWARDS,
+        "peak_memory_above_start_mib": (torch.cuda.max_memory_allocated() - held) / 2 ** 20,
+        "ms_per_forward_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+        "ms_per_forward_top_kernels": [{"name": n[:120], "ms": ms} for n, ms in
+                                       sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+    }
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 values at |x| (8 significant bits)."""
+    exp = torch.frexp(x.abs().clamp_min(2.0 ** -126)).exponent
+    return torch.ldexp(torch.ones_like(x), (exp - 8).to(torch.int32))
+
+
+def _step_inputs(k, d, dtype, normalised, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    pre = (torch.randn((BATCH, T_AUDIO, C), generator=g, device=dev) * 2 + 0.5).to(dtype)
+    w = (torch.randn((k, C, C), generator=g, device=dev) / (k * C) ** 0.5).to(dtype)
+    bias = torch.randn(C, generator=g, device=dev) * 0.1
+    if normalised:
+        pf = pre.float()
+        mean, inv = group_stats(pf.sum(1), pf.square().sum(1), T_AUDIO * C // GROUPS, GROUPS)
+        gamma = torch.rand((BATCH, C), generator=g, device=dev) + 0.5
+        beta = torch.randn((BATCH, C), generator=g, device=dev) * 0.1
+        slope = 0.1
+    else:
+        mean = torch.zeros((BATCH, C), device=dev)
+        inv = gamma = torch.ones((BATCH, C), device=dev)
+        beta, slope = mean, 1.0
+    return (pre, mean.contiguous(), inv.contiguous(), gamma, beta, w, bias, slope), (k - 1) * d // 2
+
+
+def _check_step(got, want, dtype):
+    """Kernel against plain version.  Tolerances:
+    - fp32 pre_out: 1e-4 abs.  Both sum k*32 products of O(1) values in
+      fp32; only the order differs.
+    - bf16 pre_out: 2 bf16 ulps of the plain value, plus 1e-5 of the
+      largest |pre_out| for values near zero.  Both round the same fp32 sum
+      to bf16; a different fp32 summation order can move the rounding by one
+      ulp, and near zero the fp32 order error exceeds a bf16 ulp.
+    - sums: 1e-4 relative to sum(|x|) (for sum x) and to sum(x^2).  Both are
+      fp32 sums of the same fp32 values over 65536 steps, in another order
+      (per-tile partials + torch sum vs torch sum)."""
+    out_g, out_w = got[0].float(), want[0].float()
+    err = (out_g - out_w).abs()
+    if dtype == torch.float32:
+        bad = int((err > 1e-4).sum())
+    else:
+        bad = int((err > 2 * _bf16_ulp(out_w) + 1e-5 * out_w.abs().max()).sum())
+    scale1 = out_w.abs().sum(1)
+    scale2 = want[2]
+    rel1 = float(((got[1] - want[1]).abs() / scale1).max())
+    rel2 = float(((got[2] - want[2]).abs() / scale2).max())
+    if bad or rel1 > 1e-4 or rel2 > 1e-4:
+        raise AssertionError(f"kernel disagrees with plain version ({dtype}): {bad} pre_out values "
+                             f"out of tolerance (max abs err {float(err.max()):.3g}), "
+                             f"sum rel err {rel1:.3g}, sum-sq rel err {rel2:.3g}")
+    return float(err.max()), max(rel1, rel2)
+
+
+def _step_bound_ms(k, dtype):
+    """Least time for one step: read pre, write pre_out, read W2 and the
+    statistics, write the two sums; against 2*B*T*k*C*C operations."""
+    es = torch.finfo(dtype).bits // 8
+    n = BATCH * T_AUDIO * C
+    nbytes = 2 * n * es + k * C * C * es + (4 * BATCH * C + C + 2 * BATCH * C) * 4
+    ops = 2 * BATCH * T_AUDIO * k * C * C
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS_PER_S[dtype]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain version in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+
+    # 1. device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+
+    # 2. build
+    build.load_library()
+    how = f"{build.build_seconds:.2f} s cold" if build.build_seconds is not None else "cached"
+    print(f"build: nvcc {' '.join(build.NVCC_FLAGS)} -> {build.library_path().name}: {how}")
+
+    cfg = GeneratorConfig()
+    steps = [(k, d) for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations) for d in dils]
+
+    # 3. kernel against plain version
+    worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    for dtype in worst:
+        for i, (k, d) in enumerate(steps):
+            for normalised in (False, True):
+                args, lo = _step_inputs(k, d, dtype, normalised, seed=100 * i + normalised)
+                got = grc_kernel.grc_step(*args, lo=lo, dilation=d)
+                want = grc_kernel.grc_step_reference(*args, lo=lo, dilation=d)
+                torch.cuda.synchronize()
+                e, r = _check_step(got, want, dtype)
+                worst[dtype] = (max(worst[dtype][0], e), max(worst[dtype][1], r))
+    print("kernel_check: 9 steps x {neutral, normalised} at "
+          f"[{BATCH}, {T_AUDIO}, {C}] agree; max |pre_out err| fp32 {worst[torch.float32][0]:.3g} "
+          f"(tol 1e-4), bf16 {worst[torch.bfloat16][0]:.3g} (tol 2 ulp); max sum rel err "
+          f"{max(worst[torch.float32][1], worst[torch.bfloat16][1]):.3g} (tol 1e-4)")
+
+    # 4. generator: the main path, through the entry point a user calls
+    model = build_generator(cfg, torch.bfloat16, "cuda", seed=0)
+    _redraw_parameters(model, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    mel = torch.randn((BATCH, cfg.input_channels, FRAMES), generator=g, device="cuda")
+    spk = torch.randn((BATCH, cfg.speaker_dim), generator=g, device="cuda")
+    emo = torch.randn((BATCH, cfg.emotion_dim), generator=g, device="cuda")
+
+    def no_taps(pre, mean, inv, gamma, beta, w, bias, slope, *, lo, dilation):
+        return grc_kernel.grc_step_reference(pre, mean, inv, gamma, beta, torch.zeros_like(w), bias,
+                                             slope, lo=lo, dilation=dilation)
+
+    with torch.no_grad():
+        grc_kernel.launches = 0
+        wav = model(mel, spk, emo)
+        torch.cuda.synchronize()
+        launches = grc_kernel.launches
+        wav_plain = model(mel, spk, emo, step=grc_kernel.grc_step_reference)
+        wav_no_taps = model(mel, spk, emo, step=no_taps)
+        torch.cuda.synchronize()
+    expect_shape = (BATCH, 1, FRAMES * cfg.upsample_ratio)
+    if tuple(wav.shape) != expect_shape:
+        raise AssertionError(f"wav shape {tuple(wav.shape)} != {expect_shape}")
+    if not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
+        raise AssertionError("wav has non-finite values or values outside [-1, 1]")
+    if launches != len(steps):
+        raise AssertionError(f"the forward launched the kernel {launches} times, expected {len(steps)}")
+    # The two paths differ only in fp32 summation order inside the 9 steps,
+    # which can move a bf16 rounding by one ulp; allow 4 bf16 ulps at the
+    # output's peak.  The check must be able to see the MRF taps: a path
+    # that drops them has to land outside that tolerance.
+    gen_err = float((wav - wav_plain).abs().max())
+    gen_tol = 4 * 2.0 ** -8 * float(wav_plain.abs().max())
+    taps_effect = float((wav_no_taps - wav_plain).abs().max())
+    if gen_err > gen_tol:
+        raise AssertionError(f"generator kernel path differs from plain path by {gen_err:.3g} > {gen_tol:.3g}")
+    if taps_effect <= gen_tol:
+        raise AssertionError(f"dropping the MRF taps moves the output by {taps_effect:.3g}, within the "
+                             f"tolerance {gen_tol:.3g}: the generator check cannot see the kernel")
+    saturated = float((wav.abs() > 0.99).float().mean())
+    print(f"generator: wav {tuple(wav.shape)} bf16 finite, max|wav| {float(wav.abs().max()):.4f}, "
+          f"std {float(wav.std()):.4f}, share |wav| > 0.99 {saturated:.4f}; kernel vs plain path max err "
+          f"{gen_err:.3g} (tol {gen_tol:.3g}); without the MRF taps max diff {taps_effect:.3g} "
+          f"({taps_effect / gen_tol:.1f}x tol); kernel launches {launches}")
+
+    # 5. timing (bf16, normalised statistics: the main path's case)
+    rows = []
+    with torch.no_grad():
+        for i, (k, d) in enumerate(steps):
+            args, lo = _step_inputs(k, d, torch.bfloat16, True, seed=100 * i + 1)
+            y_cf = args[0].transpose(1, 2).contiguous()
+            w_lib = args[5].permute(2, 1, 0).contiguous()
+            ms = _time_ms(lambda: grc_kernel.grc_step(*args, lo=lo, dilation=d))
+            plain_ms = _time_ms(lambda: grc_kernel.grc_step_reference(*args, lo=lo, dilation=d))
+            lib_ms = _time_ms(lambda: F.conv1d(y_cf, w_lib, padding=lo, dilation=d))
+            bytes_ms, ops_ms = _step_bound_ms(k, torch.bfloat16)
+            rows.append({"k": k, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bytes_ms": bytes_ms, "ops_ms": ops_ms})
+        fwd_ms = _time_ms(lambda: model(mel, spk, emo))
+        fwd_plain_ms = _time_ms(lambda: model(mel, spk, emo, step=grc_kernel.grc_step_reference))
+    audio_s = BATCH * FRAMES * HOP / SAMPLE_RATE
+    print("timing_steps: " + json.dumps(rows))
+    print(f"timing_forward: batch {BATCH} x {FRAMES} frames bf16: kernel path {fwd_ms:.3f} ms "
+          f"({audio_s / fwd_ms * 1e3:.1f} audio-s/s), plain path {fwd_plain_ms:.3f} ms "
+          f"({audio_s / fwd_plain_ms * 1e3:.1f} audio-s/s)")
+
+    # 6. trace: where the forward's device time goes
+    with torch.no_grad():
+        print("trace: " + json.dumps(_trace(lambda: model(mel, spk, emo))))
+
+    bytes_total = sum(r["bytes_ms"] for r in rows)
+    ops_total = sum(r["ops_ms"] for r in rows)
+    kernel = {
+        "name": "grc_step",
+        "route": "cuda",
+        "source": "hifigan_tpu_torch/csrc/grc_step.cu",
+        "replaces": "hifigan_tpu/ops/pallas/grc_kernel.py:176",
+        "launches": launches,
+        "max_abs_err": max(worst[torch.float32][0], worst[torch.bfloat16][0]),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows),
+        "bound_by": "bytes" if bytes_total >= ops_total else "operations",
+        "library_ms": sum(r["library_ms"] for r in rows),
+    }
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
