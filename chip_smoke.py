@@ -5,22 +5,27 @@
 
 Phases, each printing its own line:
   1. the card's name and power limit, as nvidia-smi gives them;
-  2. build: nvcc compiles hifigan_tpu_torch/csrc/*.cu (seconds taken);
-  3. kernel check: the GRC-step kernel against its plain PyTorch version at
-     the flagship's MRF shape [8, 65536, 32], for all nine (k, d) steps,
-     with neutral and normalised statistics, in fp32 and bf16;
+  2. build: nvcc compiles each hifigan_tpu_torch/csrc/*.cu (seconds taken,
+     and ptxas's registers, spills and shared memory per kernel);
+  3. kernel check: the two GRC-step kernels (bf16 on the tensor cores, fp32
+     on the CUDA cores) against their plain PyTorch version at the
+     flagship's MRF shape [8, 65536, 32], for all nine (k, d) steps, with
+     neutral and normalised statistics;
   4. generator: the flagship generator (full config, every parameter
-     redrawn from a seed as N(0, 0.3^2/fan)) at batch 8 x 256 mel frames in
-     bf16, once through the kernel and once through the plain path; the
-     kernel must launch 9 times in that run, and dropping the MRF taps must
-     move the output by more than the tolerance the two paths are held to;
-  5. timing: CUDA events, median of 25 runs after warm-up, for each step
-     (kernel, plain version, F.conv1d of the same dilated conv) and for the
-     whole forward;
+     redrawn from a seed as N(0, 0.3^2/fan)) at batch 8 x 256 mel frames,
+     in bf16 and in fp32, each once through the kernel and once through the
+     plain path; each kernel must launch 9 times in that run, and in bf16
+     dropping the MRF taps must move the output by more than the tolerance
+     the two paths are held to;
+  5. timing, medians of 25 runs after warm-up: the device time of each step
+     in each dtype (kernel, plain version, F.conv1d of the same dilated
+     conv) and of a plain copy of a step's input, from CUDA events around
+     a CUDA graph of 10 calls; the bf16 forward's wall time, from CUDA
+     events around one eager call;
   6. trace: torch.profiler over 10 forwards of the kernel path: the device's
      busy share of the window, launches per forward, the forward's peak
      device memory and device time per kernel family.
-Then one JSON line describing the kernel, and last the result line
+Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
 """
@@ -45,12 +50,14 @@ C, GROUPS = 32, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 CUDA cores, bf16 tensor cores
 RUNS, WARMUP = 25, 3
+GRAPH_CALLS = 10
 TRACED_FORWARDS = 10
 T_AUDIO = FRAMES * HOP
 
 
 def _time_ms(fn) -> float:
-    """Median device time of one call, from CUDA events around each run."""
+    """Median time of one call, from CUDA events around each run: the
+    device's time, or the host's where it sets the pace."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -63,6 +70,26 @@ def _time_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn) -> float:
+    """Median device time of one call: GRAPH_CALLS calls captured in a CUDA
+    graph, replayed between CUDA events, so that the host's cost of issuing
+    a call is not timed.  The calls run back to back on the device, as the
+    steps of the forward do, so L2 is warm as it is there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    ms = _time_ms(graph.replay) / GRAPH_CALLS
+    del graph
+    return ms
 
 
 def _redraw_parameters(model: torch.nn.Module, seed: int) -> None:
@@ -79,7 +106,7 @@ def _redraw_parameters(model: torch.nn.Module, seed: int) -> None:
 
 def _family(name: str) -> str:
     low = name.lower()
-    if "grc_step_kernel" in low:
+    if "grc_step" in low:
         return "grc_step (CUDA kernel)"
     if any(w in low for w in ("conv", "cudnn", "xmma", "gemm", "sm90")):
         return "convolutions and matmuls (cuDNN / cuBLAS)"
@@ -212,7 +239,8 @@ def main() -> int:
     # 2. build
     build.load_library()
     how = f"{build.build_seconds:.2f} s cold" if build.build_seconds is not None else "cached"
-    print(f"build: nvcc {' '.join(build.NVCC_FLAGS)} -> {build.library_path().name}: {how}")
+    print(f"build: nvcc {' '.join(build.NVCC_FLAGS)} -> {build.library_path().name}: {how}; ptxas: "
+          + "; ".join((build.ptxas or "no report").splitlines()))
 
     cfg = GeneratorConfig()
     steps = [(k, d) for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations) for d in dils]
@@ -233,9 +261,13 @@ def main() -> int:
           f"(tol 1e-4), bf16 {worst[torch.bfloat16][0]:.3g} (tol 2 ulp); max sum rel err "
           f"{max(worst[torch.float32][1], worst[torch.bfloat16][1]):.3g} (tol 1e-4)")
 
-    # 4. generator: the main path, through the entry point a user calls
-    model = build_generator(cfg, torch.bfloat16, "cuda", seed=0)
-    _redraw_parameters(model, seed=3)
+    # 4. generator: the main path, through the entry point a user calls, in
+    # bf16 (the flagship) and fp32, so that each kernel runs on it
+    models = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        models[dtype] = build_generator(cfg, dtype, "cuda", seed=0)
+        _redraw_parameters(models[dtype], seed=3)
+    model = models[torch.bfloat16]
     g = torch.Generator(device="cuda").manual_seed(1)
     mel = torch.randn((BATCH, cfg.input_channels, FRAMES), generator=g, device="cuda")
     spk = torch.randn((BATCH, cfg.speaker_dim), generator=g, device="cuda")
@@ -246,55 +278,74 @@ def main() -> int:
                                              slope, lo=lo, dilation=dilation)
 
     with torch.no_grad():
-        grc_kernel.launches = 0
-        wav = model(mel, spk, emo)
+        for name in grc_kernel.launches:
+            grc_kernel.launches[name] = 0
+        wavs = {dtype: m(mel, spk, emo) for dtype, m in models.items()}
         torch.cuda.synchronize()
-        launches = grc_kernel.launches
-        wav_plain = model(mel, spk, emo, step=grc_kernel.grc_step_reference)
+        launches = dict(grc_kernel.launches)
+        wavs_plain = {dtype: m(mel, spk, emo, step=grc_kernel.grc_step_reference) for dtype, m in models.items()}
         wav_no_taps = model(mel, spk, emo, step=no_taps)
         torch.cuda.synchronize()
     expect_shape = (BATCH, 1, FRAMES * cfg.upsample_ratio)
-    if tuple(wav.shape) != expect_shape:
-        raise AssertionError(f"wav shape {tuple(wav.shape)} != {expect_shape}")
-    if not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
-        raise AssertionError("wav has non-finite values or values outside [-1, 1]")
-    if launches != len(steps):
-        raise AssertionError(f"the forward launched the kernel {launches} times, expected {len(steps)}")
-    # The two paths differ only in fp32 summation order inside the 9 steps,
-    # which can move a bf16 rounding by one ulp; allow 4 bf16 ulps at the
-    # output's peak.  The check must be able to see the MRF taps: a path
-    # that drops them has to land outside that tolerance.
+    for dtype, wav in wavs.items():
+        if tuple(wav.shape) != expect_shape:
+            raise AssertionError(f"{dtype} wav shape {tuple(wav.shape)} != {expect_shape}")
+        if not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
+            raise AssertionError(f"{dtype} wav has non-finite values or values outside [-1, 1]")
+    if launches != {"grc_step_f32": len(steps), "grc_step_bf16": len(steps)}:
+        raise AssertionError(f"the forwards launched the kernels {launches} times, expected {len(steps)} each")
+    # The two paths differ only in fp32 summation order inside the 9 steps.
+    # bf16: that can move a bf16 rounding by one ulp; allow 4 bf16 ulps at
+    # the output's peak.  The check must be able to see the MRF taps: a path
+    # that drops them has to land outside that tolerance.  fp32: the step's
+    # own tolerance, 1e-4.
+    wav, wav_plain = wavs[torch.bfloat16], wavs_plain[torch.bfloat16]
     gen_err = float((wav - wav_plain).abs().max())
     gen_tol = 4 * 2.0 ** -8 * float(wav_plain.abs().max())
     taps_effect = float((wav_no_taps - wav_plain).abs().max())
+    gen_err_f32 = float((wavs[torch.float32] - wavs_plain[torch.float32]).abs().max())
     if gen_err > gen_tol:
         raise AssertionError(f"generator kernel path differs from plain path by {gen_err:.3g} > {gen_tol:.3g}")
     if taps_effect <= gen_tol:
         raise AssertionError(f"dropping the MRF taps moves the output by {taps_effect:.3g}, within the "
                              f"tolerance {gen_tol:.3g}: the generator check cannot see the kernel")
+    if gen_err_f32 > 1e-4:
+        raise AssertionError(f"fp32 generator kernel path differs from plain path by {gen_err_f32:.3g} > 1e-4")
     saturated = float((wav.abs() > 0.99).float().mean())
     print(f"generator: wav {tuple(wav.shape)} bf16 finite, max|wav| {float(wav.abs().max()):.4f}, "
           f"std {float(wav.std()):.4f}, share |wav| > 0.99 {saturated:.4f}; kernel vs plain path max err "
           f"{gen_err:.3g} (tol {gen_tol:.3g}); without the MRF taps max diff {taps_effect:.3g} "
-          f"({taps_effect / gen_tol:.1f}x tol); kernel launches {launches}")
+          f"({taps_effect / gen_tol:.1f}x tol); fp32 kernel vs plain path max err {gen_err_f32:.3g} "
+          f"(tol 1e-4); kernel launches {launches}")
 
-    # 5. timing (bf16, normalised statistics: the main path's case)
-    rows = []
+    # 5. timing (normalised statistics: the main path's case)
+    rows = {torch.bfloat16: [], torch.float32: []}
+    lib = build.load_library()
     with torch.no_grad():
-        for i, (k, d) in enumerate(steps):
-            args, lo = _step_inputs(k, d, torch.bfloat16, True, seed=100 * i + 1)
-            y_cf = args[0].transpose(1, 2).contiguous()
-            w_lib = args[5].permute(2, 1, 0).contiguous()
-            ms = _time_ms(lambda: grc_kernel.grc_step(*args, lo=lo, dilation=d))
-            plain_ms = _time_ms(lambda: grc_kernel.grc_step_reference(*args, lo=lo, dilation=d))
-            lib_ms = _time_ms(lambda: F.conv1d(y_cf, w_lib, padding=lo, dilation=d))
-            bytes_ms, ops_ms = _step_bound_ms(k, torch.bfloat16)
-            rows.append({"k": k, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bytes_ms": bytes_ms, "ops_ms": ops_ms})
+        for dtype, dtype_rows in rows.items():
+            for i, (k, d) in enumerate(steps):
+                args, lo = _step_inputs(k, d, dtype, True, seed=100 * i + 1)
+                y_cf = args[0].transpose(1, 2).contiguous()
+                w_lib = args[5].permute(2, 1, 0).contiguous()
+                ms = _device_ms(lambda: grc_kernel.grc_step(*args, lo=lo, dilation=d))
+                plain_ms = _device_ms(lambda: grc_kernel.grc_step_reference(*args, lo=lo, dilation=d))
+                lib_ms = _device_ms(lambda: F.conv1d(y_cf, w_lib, padding=lo, dilation=d))
+                bytes_ms, ops_ms = _step_bound_ms(k, dtype)
+                row = {"k": k, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+                if dtype == torch.bfloat16:
+                    row["ctas_per_sm"] = lib.grc_step_bf16_ctas_per_sm(k, d)
+                dtype_rows.append(row)
+        src = torch.empty((BATCH, T_AUDIO, C), dtype=torch.bfloat16, device="cuda")
+        dst = torch.empty_like(src)
+        copy_ms = _device_ms(lambda: dst.copy_(src))
         fwd_ms = _time_ms(lambda: model(mel, spk, emo))
         fwd_plain_ms = _time_ms(lambda: model(mel, spk, emo, step=grc_kernel.grc_step_reference))
     audio_s = BATCH * FRAMES * HOP / SAMPLE_RATE
-    print("timing_steps: " + json.dumps(rows))
+    print("timing_steps_bf16: " + json.dumps(rows[torch.bfloat16]))
+    print("timing_steps_fp32: " + json.dumps(rows[torch.float32]))
+    print(f"timing_copy: a copy of one bf16 step's input [{BATCH}, {T_AUDIO}, {C}] (its bytes read once and "
+          f"written once) {copy_ms:.4f} ms")
     print(f"timing_forward: batch {BATCH} x {FRAMES} frames bf16: kernel path {fwd_ms:.3f} ms "
           f"({audio_s / fwd_ms * 1e3:.1f} audio-s/s), plain path {fwd_plain_ms:.3f} ms "
           f"({audio_s / fwd_plain_ms * 1e3:.1f} audio-s/s)")
@@ -303,22 +354,26 @@ def main() -> int:
     with torch.no_grad():
         print("trace: " + json.dumps(_trace(lambda: model(mel, spk, emo))))
 
-    bytes_total = sum(r["bytes_ms"] for r in rows)
-    ops_total = sum(r["ops_ms"] for r in rows)
-    kernel = {
-        "name": "grc_step",
-        "route": "cuda",
-        "source": "hifigan_tpu_torch/csrc/grc_step.cu",
-        "replaces": "hifigan_tpu/ops/pallas/grc_kernel.py:176",
-        "launches": launches,
-        "max_abs_err": max(worst[torch.float32][0], worst[torch.bfloat16][0]),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows),
-        "bound_by": "bytes" if bytes_total >= ops_total else "operations",
-        "library_ms": sum(r["library_ms"] for r in rows),
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    kernels = []
+    for name, source, dtype in (("grc_step_bf16", "hifigan_tpu_torch/csrc/grc_step_bf16.cu", torch.bfloat16),
+                                ("grc_step_f32", "hifigan_tpu_torch/csrc/grc_step.cu", torch.float32)):
+        dtype_rows = rows[dtype]
+        bytes_total = sum(r["bytes_ms"] for r in dtype_rows)
+        ops_total = sum(r["ops_ms"] for r in dtype_rows)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": "hifigan_tpu/ops/pallas/grc_kernel.py:176",
+            "launches": launches[name],
+            "max_abs_err": worst[dtype][0],
+            "ms": sum(r["ms"] for r in dtype_rows),
+            "plain_ms": sum(r["plain_ms"] for r in dtype_rows),
+            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in dtype_rows),
+            "bound_by": "bytes" if bytes_total >= ops_total else "operations",
+            "library_ms": sum(r["library_ms"] for r in dtype_rows),
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,11 +1,13 @@
-// One step of the generator's fused GRC chain, for Hopper (sm_90a).
+// The fp32 step of the generator's fused GRC chain, for Hopper (sm_90a), on
+// the CUDA cores.
 //
 // Replaces the Pallas TPU kernel hifigan_tpu/ops/pallas/grc_kernel.py
-// (_grc_kernel / fused_grc_step, both tap_concat settings).  For a batch row
-// b and time t of pre [B, T, C]:
+// (_grc_kernel / fused_grc_step, both tap_concat settings) for fp32
+// activations; bf16 runs on the tensor cores (grc_step_bf16.cu).  For a
+// batch row b and time t of pre [B, T, C]:
 //
 //   y[t]       = leaky(gamma * (pre[t] - mean) * inv + beta, slope)
-//                (rounded to the activation dtype; 0 for t outside [0, T))
+//                (0 for t outside [0, T))
 //   pre_out[t] = sum_j y[t + dil*j - lo] . W2[j] + bias + y[t]
 //
 // and the fp32 per-channel partial sums of pre_out and pre_out^2 over each
@@ -15,21 +17,19 @@
 // original k taps and dilation.
 //
 // What bounds it: at the flagship's MRF shapes ([8, 65536, 32]) a step moves
-// 2*B*T*C activation values (20 us in bf16 at 3.35 TB/s) and does
-// 2*B*T*k*C*C flops.  On the tensor cores that would be bounded by bytes;
-// this first version runs the flops as fp32 FMAs on the CUDA cores
-// (67 TFLOP/s: 48 us for k=3, 176 us for k=11), so it is bounded by
-// operations.
+// 2*B*T*C fp32 values (40 us at 3.35 TB/s) and does 2*B*T*k*C*C flops as
+// fp32 FMAs on the CUDA cores (67 TFLOP/s: 48 us for k=3, 176 us for k=11),
+// so it is bounded by operations.  TF32 tensor cores would not keep fp32
+// parity with the plain version.
 //
 // Design: one CTA per (batch row, 128-step time tile); the haloed window is
 // read from device memory once, normalised, activated and masked in shared
 // memory, and the tap contraction reads it from there; W2 is staged in
-// shared memory as fp32; each thread owns one output channel and 16 time
-// steps, holding one tap's 32 weights in registers while the window rows are
+// shared memory; each thread owns one output channel and 16 time steps,
+// holding one tap's 32 weights in registers while the window rows are
 // broadcast to the warp.  Sums of each tile go to [B, n_tiles, C] (no
 // atomics, so runs repeat bit for bit).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,13 +41,9 @@ constexpr int kSteps = 16;              // time steps per thread
 constexpr int kTile = kWarps * kSteps;  // time steps per CTA
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -175,7 +171,7 @@ int launch(const void* pre, const void* mean, const void* inv, const void* gamma
 
 extern "C" {
 
-int grc_step_tile() { return kTile; }
+int grc_step_f32_tile() { return kTile; }
 int grc_step_channels() { return kC; }
 const char* grc_step_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -187,14 +183,6 @@ int grc_step_f32(const void* pre, const void* mean, const void* inv, const void*
                  void* stream) {
   return launch<float>(pre, mean, inv, gamma, beta, w, bias, slope, out, part1, part2, batch,
                        t_len, k, dil, lo, stream);
-}
-
-int grc_step_bf16(const void* pre, const void* mean, const void* inv, const void* gamma,
-                  const void* beta, const void* w, const void* bias, float slope, void* out,
-                  void* part1, void* part2, int batch, int t_len, int k, int dil, int lo,
-                  void* stream) {
-  return launch<__nv_bfloat16>(pre, mean, inv, gamma, beta, w, bias, slope, out, part1, part2,
-                               batch, t_len, k, dil, lo, stream);
 }
 
 }  // extern "C"

@@ -11,9 +11,11 @@ plus the fp32 per-channel sums Σpre_out and Σpre_out² that the next
 GroupNorm needs.  ``y`` is rounded to ``pre``'s dtype before the taps, sums
 are fp32, and ``pre_out`` keeps ``pre``'s dtype.
 
-:func:`grc_step` launches the CUDA kernel (``csrc/grc_step.cu``) for a CUDA
-tensor and runs :func:`grc_step_reference` for a CPU tensor; it never falls
-back from one to the other.  ``launches`` counts kernel launches.
+Two kernels: bf16 runs on the tensor cores (``csrc/grc_step_bf16.cu``),
+fp32 on the CUDA cores (``csrc/grc_step.cu``).  :func:`grc_step` launches
+the one for ``pre``'s dtype for a CUDA tensor and runs
+:func:`grc_step_reference` for a CPU tensor; it never falls back from one to
+the other.  ``launches`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -27,11 +29,13 @@ import torch.nn.functional as F
 from hifigan_tpu_torch.ops.conv import leaky_relu
 from hifigan_tpu_torch.ops.grc_lora import group_stats
 
-launches = 0  # CUDA kernel launches made by grc_step in this process
+launches = {"grc_step_f32": 0, "grc_step_bf16": 0}  # CUDA launches of each kernel in this process
 
-# pre, mean, inv, gamma, beta, w, bias, slope, out, part1, part2, B, T, k, dil, lo, stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p]
+# Time steps per tile (kTile in each .cu) and tiles per CTA of each kernel.
+_TILING = {torch.float32: (128, 1), torch.bfloat16: (512, 4)}
+
+# pre, mean, inv, gamma, beta, w, bias, slope, out, part1, part2, B, T, k, dil, lo
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
 
 
 @functools.cache
@@ -39,10 +43,26 @@ def _library() -> ctypes.CDLL:
     from hifigan_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    for fn in (lib.grc_step_f32, lib.grc_step_bf16):
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    lib.grc_step_f32.argtypes = _ARGTYPES + [ctypes.c_void_p]  # stream
+    lib.grc_step_bf16.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # tiles/CTA, CTAs
+    lib.grc_step_f32.restype = lib.grc_step_bf16.restype = ctypes.c_int
     lib.grc_step_error_string.argtypes, lib.grc_step_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+    tiles = (lib.grc_step_f32_tile(), lib.grc_step_bf16_tile())
+    if tiles != (_TILING[torch.float32][0], _TILING[torch.bfloat16][0]):
+        raise RuntimeError(f"grc_step: the kernels' tiles {tiles} differ from the wrapper's {_TILING}")
     return lib
+
+
+def partition(t_len: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """``(tile, tiles_per_cta, n_cta)``: how the kernel for ``dtype`` splits a
+    batch row of ``t_len`` steps.  CTA i walks tiles ``[i·tiles_per_cta,
+    (i+1)·tiles_per_cta)`` and tile j covers steps ``[j·tile, (j+1)·tile)``,
+    both cut at ``t_len``; the ``n_cta`` CTAs of a row cover it once, each
+    with at least one tile.  The split depends on ``t_len`` alone, never on
+    the card, so the per-CTA sums, and their total, repeat bit for bit."""
+    tile, per = _TILING[dtype]
+    n_tiles = -(-t_len // tile)
+    return tile, per, -(-n_tiles // per)
 
 
 def grc_step_reference(pre, mean, inv, gamma, beta, w, bias, slope, *, lo, dilation=1):
@@ -79,6 +99,10 @@ def _check(pre, mean, inv, gamma, beta, w, bias, lo, dilation, channels):
         raise ValueError("grc_step: all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("grc_step: all tensors must be contiguous")
+    if B < 1 or T < 1:
+        raise ValueError(f"grc_step: pre must not be empty, got {tuple(pre.shape)}")
+    if pre.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("grc_step: pre and w must be 16-byte aligned")
     if dilation < 1 or not 0 <= lo <= (k - 1) * dilation:
         raise ValueError(f"grc_step: need dilation >= 1 and 0 <= lo <= (k-1)*dilation, got {lo}, {dilation}")
 
@@ -95,25 +119,25 @@ def grc_step(pre, mean, inv, gamma, beta, w, bias, slope, *, lo, dilation=1):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (pre, mean, inv, gamma, beta, w, bias)):
         raise RuntimeError("grc_step: the CUDA kernel has no backward; run under torch.no_grad(), "
                            "or pass step=grc_step_reference to differentiate the plain version")
-    global launches
     lib = _library()
-    tile = lib.grc_step_tile()
     _check(pre, mean, inv, gamma, beta, w, bias, lo, dilation, lib.grc_step_channels())
     B, T, C = pre.shape
+    _, per, n_cta = partition(T, pre.dtype)
     out = torch.empty_like(pre)
-    part = torch.empty((2, B, -(-T // tile), C), dtype=torch.float32, device=pre.device)
-    fn = lib.grc_step_bf16 if pre.dtype == torch.bfloat16 else lib.grc_step_f32
+    part = torch.empty((2, B, n_cta, C), dtype=torch.float32, device=pre.device)
+    name = "grc_step_bf16" if pre.dtype == torch.bfloat16 else "grc_step_f32"
+    tiling = (per, n_cta) if pre.dtype == torch.bfloat16 else ()
     with torch.cuda.device(pre.device):
-        err = fn(
+        err = getattr(lib, name)(
             pre.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             w.data_ptr(), bias.data_ptr(), float(slope), out.data_ptr(),
-            part[0].data_ptr(), part[1].data_ptr(), B, T, w.shape[0], dilation, lo,
+            part[0].data_ptr(), part[1].data_ptr(), B, T, w.shape[0], dilation, lo, *tiling,
             torch.cuda.current_stream(pre.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"grc_step: CUDA error {err} at launch "
                            f"({lib.grc_step_error_string(err).decode()}; k={w.shape[0]}, dilation={dilation})")
-    launches += 1
+    launches[name] += 1
     s = part.sum(dim=2)
     return out, s[0], s[1]
 

@@ -56,6 +56,25 @@ def test_generator_matches_jax_both_backends():
         np.testing.assert_allclose(got, w, rtol=2e-3, atol=2e-3, err_msg=backend)
 
 
+def test_default_config_generator_matches_jax():
+    """The full default config (80 mels, 512 hidden, upsampling 8·8·2·2,
+    MRF kernels {3, 7, 11} × dilations {1, 3, 5}) at batch 1 × 8 frames:
+    the port against the JAX generator (mrf_backend "xla", jitted), both
+    fp32; atol 1e-4, rtol 1e-3.  Only the parameter shapes are taken from
+    JAX's init (``eval_shape``): every leaf is redrawn from a seed."""
+    mel, spk, emo = _inputs(7, (1, 80, 8), (1, 192), (1, 256))
+    jm = jgen.Generator(jgen.GeneratorConfig(mrf_backend="xla"))
+    params = _randomise(jax.eval_shape(jm.init, jax.random.PRNGKey(0), mel, spk, emo), 3)
+    want = np.asarray(jax.jit(jm.apply)(params, mel, spk, emo))
+
+    model = load_jax_generator_params(tgen.Generator(tgen.GeneratorConfig(), gen=_gen()), params)
+    with torch.no_grad():
+        got = model(*map(torch.from_numpy, (mel, spk, emo))).numpy()
+    assert got.shape == (1, 1, 8 * 256)
+    assert np.isfinite(got).all() and 0.005 < got.std() and np.abs(got).max() < 0.99
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
 @pytest.mark.parametrize("k,f,p", [(8, 4, 2), (4, 2, 1), (5, 2, 1)], ids=["exact_f4", "exact_f2", "odd_k"])
 def test_odconv_transpose_matches_jax(k, f, p):
     (x,) = _inputs(k, (2, 9, 12))

@@ -107,7 +107,7 @@ def test_cpu_step_runs_plain_version_and_counts_no_launch():
     x, stats, w, bias, slope = _step_inputs(0, 2, 40, 32, 3, True)
     args = (torch.from_numpy(x), *map(torch.from_numpy, stats), torch.from_numpy(w),
             torch.from_numpy(bias), slope)
-    before = grc_kernel.launches
+    before = dict(grc_kernel.launches)
     got = grc_kernel.grc_step(*args, lo=2, dilation=2)
     want = grc_kernel.grc_step_reference(*args, lo=2, dilation=2)
     assert grc_kernel.launches == before
@@ -121,3 +121,45 @@ def test_step_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         grc_kernel.grc_step(x, s, s, s, s, torch.zeros((3, 32, 32), device="meta"),
                             torch.zeros(32, device="meta"), 0.1, lo=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 37, 511, 512, 513, 65536])
+def test_partition_covers_each_step_once(T, dtype):
+    """The kernel's split of a batch row (tiles of ``tile`` steps, runs of
+    ``tiles_per_cta`` tiles a CTA) covers [0, T) exactly once, with no CTA
+    left without a tile; the wrapper allocates one partial sum per CTA,
+    ``[2, B, n_cta, 32]``.  At the main path's T = 65536 the bf16 kernel runs
+    32 CTAs a row, 4 tiles of 512 steps each."""
+    tile, per, n_cta = grc_kernel.partition(T, dtype)
+    covered = []
+    for cta in range(n_cta):
+        tiles = [j for j in range(cta * per, (cta + 1) * per) if j * tile < T]
+        assert tiles, f"CTA {cta} of {n_cta} has no tile"
+        for j in tiles:
+            covered.extend(range(j * tile, min((j + 1) * tile, T)))
+    assert covered == list(range(T))
+    if T == 65536:
+        assert (tile, per, n_cta) == ((512, 4, 32) if dtype == torch.bfloat16 else (128, 1, 512))
+
+
+def test_ptxas_summary_names_each_kernel():
+    """The build's ``ptxas -v`` report, one line per kernel with its
+    demangled name, registers, spills and static shared memory."""
+    from hifigan_tpu_torch.ops.cuda.build import summarise_ptxas
+
+    ns = "_INTERNAL_0d1e2f3a_16_grc_step_bf16_cu_a4cf3dff"
+    report = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN{len(ns)}{ns}20grc_step_bf16_kernelEPK13__nv_bfloat16PKfS4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN{len(ns)}{ns}20grc_step_bf16_kernelEPK13__nv_bfloat16PKfS4_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers, 2688 bytes smem, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115grc_step_kernelIfEEvPKT_PKfS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115grc_step_kernelIfEEvPKT_PKfS5_
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+    assert summarise_ptxas(report).splitlines() == [
+        "grc_step_bf16_kernel: 127 registers, 0 B spill stores, 0 B spill loads, 2688 B static smem",
+        "grc_step_kernel: 48 registers, 8 B spill stores, 4 B spill loads, 0 B static smem",
+    ]
