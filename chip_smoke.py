@@ -8,9 +8,9 @@ Phases, each printing its own line:
   2. build: nvcc compiles each hifigan_tpu_torch/csrc/*.cu (seconds taken,
      and ptxas's registers, spills and shared memory per kernel);
   3. kernel check: the two GRC-step kernels (bf16 on the tensor cores, fp32
-     on the CUDA cores) against their plain PyTorch version at the
-     flagship's MRF shape [8, 65536, 32], for all nine (k, d) steps, with
-     neutral and normalised statistics;
+     on the tensor cores by the 3xTF32 split) against their plain PyTorch
+     version at the flagship's MRF shape [8, 65536, 32], for all nine
+     (k, d) steps, with neutral and normalised statistics;
   4. generator: the flagship generator (full config, every parameter
      redrawn from a seed as N(0, 0.3^2/fan)) at batch 8 x 256 mel frames,
      in bf16 and in fp32, each once through the kernel and once through the
@@ -20,8 +20,8 @@ Phases, each printing its own line:
   5. timing, medians of 25 runs after warm-up: the device time of each step
      in each dtype (kernel, plain version, F.conv1d of the same dilated
      conv) and of a plain copy of a step's input, from CUDA events around
-     a CUDA graph of 10 calls; the bf16 forward's wall time, from CUDA
-     events around one eager call;
+     a CUDA graph of 10 calls; the bf16 and fp32 forwards' wall time, kernel
+     and plain path, from CUDA events around one eager call;
   6. trace: torch.profiler over 10 forwards of the kernel path: the device's
      busy share of the window, launches per forward, the forward's peak
      device memory and device time per kernel family.
@@ -48,7 +48,10 @@ from hifigan_tpu_torch.ops.grc_lora import group_stats
 BATCH, FRAMES, SAMPLE_RATE, HOP = 8, 256, 22050, 256
 C, GROUPS = 32, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 CUDA cores, bf16 tensor cores
+# bf16: the tensor cores' dense rate.  fp32: the card's fastest fp32-accurate
+# route is three TF32 tensor-core products per product (the 3xTF32 split),
+# so a third of the 495 TFLOP/s TF32 rate; the CUDA cores' FMAs reach 67.
+PEAK_OPS_PER_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 RUNS, WARMUP = 25, 3
 GRAPH_CALLS = 10
 TRACED_FORWARDS = 10
@@ -215,7 +218,8 @@ def _check_step(got, want, dtype):
 
 def _step_bound_ms(k, dtype):
     """Least time for one step: read pre, write pre_out, read W2 and the
-    statistics, write the two sums; against 2*B*T*k*C*C operations."""
+    statistics, write the two sums; against 2*B*T*k*C*C operations at
+    PEAK_OPS_PER_S (fp32: three TF32 products each)."""
     es = torch.finfo(dtype).bits // 8
     n = BATCH * T_AUDIO * C
     nbytes = 2 * n * es + k * C * C * es + (4 * BATCH * C + C + 2 * BATCH * C) * 4
@@ -333,22 +337,25 @@ def main() -> int:
                 bytes_ms, ops_ms = _step_bound_ms(k, dtype)
                 row = {"k": k, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bytes_ms": bytes_ms, "ops_ms": ops_ms}
-                if dtype == torch.bfloat16:
-                    row["ctas_per_sm"] = lib.grc_step_bf16_ctas_per_sm(k, d)
+                ctas = lib.grc_step_bf16_ctas_per_sm if dtype == torch.bfloat16 else lib.grc_step_f32_ctas_per_sm
+                row["ctas_per_sm"] = ctas(k, d)
                 dtype_rows.append(row)
         src = torch.empty((BATCH, T_AUDIO, C), dtype=torch.bfloat16, device="cuda")
         dst = torch.empty_like(src)
         copy_ms = _device_ms(lambda: dst.copy_(src))
-        fwd_ms = _time_ms(lambda: model(mel, spk, emo))
-        fwd_plain_ms = _time_ms(lambda: model(mel, spk, emo, step=grc_kernel.grc_step_reference))
+        fwd_ms, fwd_plain_ms = {}, {}
+        for dtype, m in models.items():
+            fwd_ms[dtype] = _time_ms(lambda: m(mel, spk, emo))
+            fwd_plain_ms[dtype] = _time_ms(lambda: m(mel, spk, emo, step=grc_kernel.grc_step_reference))
     audio_s = BATCH * FRAMES * HOP / SAMPLE_RATE
     print("timing_steps_bf16: " + json.dumps(rows[torch.bfloat16]))
     print("timing_steps_fp32: " + json.dumps(rows[torch.float32]))
     print(f"timing_copy: a copy of one bf16 step's input [{BATCH}, {T_AUDIO}, {C}] (its bytes read once and "
           f"written once) {copy_ms:.4f} ms")
-    print(f"timing_forward: batch {BATCH} x {FRAMES} frames bf16: kernel path {fwd_ms:.3f} ms "
-          f"({audio_s / fwd_ms * 1e3:.1f} audio-s/s), plain path {fwd_plain_ms:.3f} ms "
-          f"({audio_s / fwd_plain_ms * 1e3:.1f} audio-s/s)")
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        print(f"timing_forward: batch {BATCH} x {FRAMES} frames {name}: kernel path {fwd_ms[dtype]:.3f} ms "
+              f"({audio_s / fwd_ms[dtype] * 1e3:.1f} audio-s/s), plain path {fwd_plain_ms[dtype]:.3f} ms "
+              f"({audio_s / fwd_plain_ms[dtype] * 1e3:.1f} audio-s/s)")
 
     # 6. trace: where the forward's device time goes
     with torch.no_grad():

@@ -11,11 +11,14 @@ plus the fp32 per-channel sums Σpre_out and Σpre_out² that the next
 GroupNorm needs.  ``y`` is rounded to ``pre``'s dtype before the taps, sums
 are fp32, and ``pre_out`` keeps ``pre``'s dtype.
 
-Two kernels: bf16 runs on the tensor cores (``csrc/grc_step_bf16.cu``),
-fp32 on the CUDA cores (``csrc/grc_step.cu``).  :func:`grc_step` launches
-the one for ``pre``'s dtype for a CUDA tensor and runs
-:func:`grc_step_reference` for a CPU tensor; it never falls back from one to
-the other.  ``launches`` counts each kernel's launches.
+Two kernels, both on the tensor cores by ``mma.sync``: bf16 × bf16 → fp32
+(``csrc/grc_step_bf16.cu``, bound by bytes), and fp32 as three TF32
+products per product, ``lo·hi + hi·lo + hi·hi`` with ``x ≈ hi + lo`` (the
+3×TF32 split, ``csrc/grc_step.cu``), which keeps fp32 accuracy and is bound
+by the TF32 rate at k ≥ 7 and by bytes at k = 3.  :func:`grc_step`
+launches the one for ``pre``'s dtype for a CUDA tensor and runs
+:func:`grc_step_reference` for a CPU tensor; it never falls back from one
+to the other.  ``launches`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from hifigan_tpu_torch.ops.grc_lora import group_stats
 launches = {"grc_step_f32": 0, "grc_step_bf16": 0}  # CUDA launches of each kernel in this process
 
 # Time steps per tile (kTile in each .cu) and tiles per CTA of each kernel.
-_TILING = {torch.float32: (128, 1), torch.bfloat16: (512, 4)}
+_TILING = {torch.float32: (256, 4), torch.bfloat16: (512, 4)}
 
 # pre, mean, inv, gamma, beta, w, bias, slope, out, part1, part2, B, T, k, dil, lo
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
@@ -43,8 +46,8 @@ def _library() -> ctypes.CDLL:
     from hifigan_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    lib.grc_step_f32.argtypes = _ARGTYPES + [ctypes.c_void_p]  # stream
-    lib.grc_step_bf16.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # tiles/CTA, CTAs
+    lib.grc_step_f32.argtypes = lib.grc_step_bf16.argtypes = (
+        _ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])  # tiles/CTA, CTAs, stream
     lib.grc_step_f32.restype = lib.grc_step_bf16.restype = ctypes.c_int
     lib.grc_step_error_string.argtypes, lib.grc_step_error_string.restype = [ctypes.c_int], ctypes.c_char_p
     tiles = (lib.grc_step_f32_tile(), lib.grc_step_bf16_tile())
@@ -126,12 +129,11 @@ def grc_step(pre, mean, inv, gamma, beta, w, bias, slope, *, lo, dilation=1):
     out = torch.empty_like(pre)
     part = torch.empty((2, B, n_cta, C), dtype=torch.float32, device=pre.device)
     name = "grc_step_bf16" if pre.dtype == torch.bfloat16 else "grc_step_f32"
-    tiling = (per, n_cta) if pre.dtype == torch.bfloat16 else ()
     with torch.cuda.device(pre.device):
         err = getattr(lib, name)(
             pre.data_ptr(), mean.data_ptr(), inv.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             w.data_ptr(), bias.data_ptr(), float(slope), out.data_ptr(),
-            part[0].data_ptr(), part[1].data_ptr(), B, T, w.shape[0], dilation, lo, *tiling,
+            part[0].data_ptr(), part[1].data_ptr(), B, T, w.shape[0], dilation, lo, per, n_cta,
             torch.cuda.current_stream(pre.device).cuda_stream,
         )
     if err != 0:

@@ -1,5 +1,6 @@
-"""The port's generator modules against the JAX modules on the CPU, fp32,
-with the JAX parameters carried over by ``load_jax_generator_params``.
+"""The port's generator modules against the JAX modules on the CPU, fp32
+(and the whole generator also in bf16), with the JAX parameters carried
+over by ``load_jax_generator_params``.
 
 Every parameter leaf is redrawn from a seed (N(0, 0.3²/fan), fan = the
 product of all but the last dim), so the zero-initialised LoRA ``B`` and
@@ -73,6 +74,34 @@ def test_default_config_generator_matches_jax():
     assert got.shape == (1, 1, 8 * 256)
     assert np.isfinite(got).all() and 0.005 < got.std() and np.abs(got).max() < 0.99
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("config,shape", [(TINY, (2, 16)), ({}, (1, 8))], ids=["tiny", "default"])
+def test_bf16_generator_matches_jax_bf16(config, shape):
+    """The port in bf16 (the flagship's dtype) against JAX's bf16 generator
+    (mrf_backend "xla", jitted), on the CPU: ``TINY`` at 2 × 16 frames and
+    ``GeneratorConfig()`` at 1 × 8 frames, parameters as in the fp32 tests.
+
+    Tolerance 4 bf16 ulps at the JAX output's peak (4·2⁻⁸·max|wav|), as
+    ``chip_smoke.py`` holds the kernel path to the plain path: both compute
+    in bf16 with fp32 sums, but round and sum in other places and orders
+    (XLA's fused ops against eager torch), so single bf16 roundings may
+    differ by an ulp and carry through the layers; a wrong op, layout or
+    dtype moves the output by far more."""
+    (batch, frames), cfg = shape, dict(config)
+    mel, spk, emo = _inputs(11, (batch, cfg.get("input_channels", 80), frames), (batch, 192), (batch, 256))
+    jm = jgen.Generator(jgen.GeneratorConfig(**cfg, mrf_backend="xla"), dtype=jnp.bfloat16)
+    params = _randomise(jax.eval_shape(jm.init, jax.random.PRNGKey(0), mel, spk, emo), 3)
+    want = np.asarray(jax.jit(jm.apply)(params, mel, spk, emo))
+
+    model = tgen.Generator(tgen.GeneratorConfig(**cfg), torch.bfloat16, gen=_gen())
+    load_jax_generator_params(model, params)
+    with torch.no_grad():
+        got = model(*map(torch.from_numpy, (mel, spk, emo))).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape == (batch, 1, frames * model.config.upsample_ratio)
+    assert np.isfinite(got).all() and 0.005 < got.std()
+    tol = 4 * 2.0 ** -8 * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("k,f,p", [(8, 4, 2), (4, 2, 1), (5, 2, 1)], ids=["exact_f4", "exact_f2", "odd_k"])

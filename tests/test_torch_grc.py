@@ -130,7 +130,8 @@ def test_partition_covers_each_step_once(T, dtype):
     ``tiles_per_cta`` tiles a CTA) covers [0, T) exactly once, with no CTA
     left without a tile; the wrapper allocates one partial sum per CTA,
     ``[2, B, n_cta, 32]``.  At the main path's T = 65536 the bf16 kernel runs
-    32 CTAs a row, 4 tiles of 512 steps each."""
+    32 CTAs a row, 4 tiles of 512 steps each, and the fp32 kernel 64 CTAs a
+    row, 4 tiles of 256 steps each."""
     tile, per, n_cta = grc_kernel.partition(T, dtype)
     covered = []
     for cta in range(n_cta):
@@ -140,7 +141,7 @@ def test_partition_covers_each_step_once(T, dtype):
             covered.extend(range(j * tile, min((j + 1) * tile, T)))
     assert covered == list(range(T))
     if T == 65536:
-        assert (tile, per, n_cta) == ((512, 4, 32) if dtype == torch.bfloat16 else (128, 1, 512))
+        assert (tile, per, n_cta) == ((512, 4, 32) if dtype == torch.bfloat16 else (256, 4, 64))
 
 
 def test_ptxas_summary_names_each_kernel():

@@ -1,5 +1,6 @@
-"""The GRC-step CUDA kernels against their plain version, on the card: bf16
-on the tensor cores (512-step tiles, 4 tiles a CTA), fp32 on the CUDA cores.
+"""The GRC-step CUDA kernels against their plain version, on the card, both
+on the tensor cores: bf16 (512-step tiles, 4 tiles a CTA) and fp32 by the
+3×TF32 split (256-step tiles, 4 tiles a CTA).
 
 The kernels have no CPU mode, so every test here skips without a CUDA card.
 This file imports torch only (no JAX), so it also runs where JAX is not
@@ -64,25 +65,86 @@ def test_kernel_matches_plain_version(cuda, k, d, T, dtype):
     _check_against_plain(*_run(args, (k - 1) * d // 2, d, dtype), dtype)
 
 
-@pytest.mark.parametrize("B,T,k,d,lo", [
-    (2, 2047, 7, 3, 9),    # 4 tiles less one step: one CTA, ragged last tile
-    (2, 2048, 7, 3, 9),    # exactly one CTA of 4 tiles
-    (2, 2049, 7, 3, 9),    # one step into a second CTA
-    (3, 4796, 11, 5, 25),  # two full CTAs and a ragged third of 2 tiles
-    (1, 5000, 11, 5, 25),  # B = 1
-    (2, 1500, 11, 5, 0),   # lo = 0: the taps look ahead only
-    (2, 1500, 11, 5, 50),  # lo = (k-1)*d: the taps look back only
-    (2, 700, 3, 1, 2),     # lo = (k-1)*d at d = 1
-])
-def test_bf16_tiling_matches_plain_version(cuda, B, T, k, d, lo):
-    """The bf16 kernel's tiles and CTAs (grc_kernel.partition) at their
-    edges, against the plain version with the tolerances above."""
-    args = _inputs(B * T + k + lo, B, T, k, torch.bfloat16, cuda)
-    _check_against_plain(*_run(args, lo, d, torch.bfloat16), torch.bfloat16)
+_TILING_CASES = {
+    torch.bfloat16: [  # 512-step tiles, 2048 steps a CTA
+        (2, 2047, 7, 3, 9),    # 4 tiles less one step: one CTA, ragged last tile
+        (2, 2048, 7, 3, 9),    # exactly one CTA of 4 tiles
+        (2, 2049, 7, 3, 9),    # one step into a second CTA
+        (3, 4796, 11, 5, 25),  # two full CTAs and a ragged third of 2 tiles
+        (1, 5000, 11, 5, 25),  # B = 1
+        (2, 1500, 11, 5, 0),   # lo = 0: the taps look ahead only
+        (2, 1500, 11, 5, 50),  # lo = (k-1)*d: the taps look back only
+        (2, 700, 3, 1, 2),     # lo = (k-1)*d at d = 1
+    ],
+    torch.float32: [  # 256-step tiles, 1024 steps a CTA
+        (2, 1023, 7, 3, 9),    # 4 tiles less one step: one CTA, ragged last tile
+        (2, 1024, 7, 3, 9),    # exactly one CTA of 4 tiles
+        (2, 1025, 7, 3, 9),    # one step into a second CTA
+        (3, 2400, 11, 5, 25),  # two full CTAs and a ragged third of 2 tiles
+        (1, 5000, 11, 5, 25),  # B = 1
+        (2, 37, 11, 5, 25),    # T shorter than the halo of 50 steps
+        (2, 1500, 11, 5, 0),   # lo = 0: the taps look ahead only
+        (2, 1500, 11, 5, 50),  # lo = (k-1)*d: the taps look back only
+        (2, 700, 3, 1, 2),     # lo = (k-1)*d at d = 1
+    ],
+}
 
 
-def test_kernel_repeats_bit_for_bit(cuda):
-    args = _inputs(0, 2, 3000, 7, torch.bfloat16, cuda)
+@pytest.mark.parametrize("dtype,B,T,k,d,lo", [
+    pytest.param(dt, *c, id="{}-B{}-T{}-k{}-d{}-lo{}".format(str(dt).removeprefix("torch."), *c))
+    for dt, cases in _TILING_CASES.items() for c in cases])
+def test_tiling_matches_plain_version(cuda, dtype, B, T, k, d, lo):
+    """Each kernel's tiles and CTAs (grc_kernel.partition) at their edges,
+    against the plain version with the tolerances above."""
+    args = _inputs(B * T + k + lo, B, T, k, dtype, cuda)
+    _check_against_plain(*_run(args, lo, d, dtype), dtype)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+    as cvt.rna.tf32.f32 rounds it."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_fp32_kernel_keeps_fp32_accuracy_by_the_3xtf32_split(cuda):
+    """The fp32 kernel's taps are three TF32 products per product; one TF32
+    pass would be ten times less accurate or more.  With |pre| up to 10 and
+    neutral statistics (y = pre) at k = 11, the kernel must stay within the
+    fp32 tolerance of the plain version (1e-4) and within a tenth of the
+    error of one TF32 pass on the same conv: the conv of the operands
+    rounded to TF32, whose products are exact in fp32 (11 x 11 significant
+    bits), summed in fp32, as a tensor core's single pass is.  That error
+    must itself exceed 1e-4, for the comparison to mean anything.  (cuDNN
+    with ``allow_tf32`` is no yardstick: it may choose an fp32 algorithm.)"""
+    import torch.nn.functional as F
+
+    B, T, k, d, lo, C = 2, 4096, 11, 5, 25, 32
+    g = np.random.default_rng(11)
+    pre = torch.tensor(g.uniform(-10, 10, (B, T, C)), dtype=torch.float32, device=cuda)
+    w = torch.tensor(g.standard_normal((k, C, C)) / np.sqrt(k * C), dtype=torch.float32, device=cuda)
+    bias = torch.tensor(g.standard_normal(C) * 0.1, dtype=torch.float32, device=cuda)
+    zeros = torch.zeros((B, C), device=cuda)
+    ones = torch.ones((B, C), device=cuda)
+    args = (pre, zeros, ones, ones, zeros, w, bias)
+    before = grc_kernel.launches["grc_step_f32"]
+    got = grc_kernel.grc_step(*args, 1.0, lo=lo, dilation=d)
+    want = grc_kernel.grc_step_reference(*args, 1.0, lo=lo, dilation=d)
+    torch.cuda.synchronize()
+    assert grc_kernel.launches["grc_step_f32"] == before + 1
+    err = float((got[0] - want[0]).abs().max())
+
+    yt = F.pad(pre.transpose(1, 2), (lo, (k - 1) * d - lo))
+    wt = w.permute(2, 1, 0).contiguous()
+    exact = F.conv1d(yt, wt, dilation=d)
+    one_pass = F.conv1d(_tf32(yt.contiguous()), _tf32(wt), dilation=d)
+    err_tf32 = float((one_pass - exact).abs().max())
+    assert err_tf32 > 1e-4, f"one TF32 pass erred by only {err_tf32:.3g}"
+    assert err <= 1e-4 and err <= err_tf32 / 10, f"kernel err {err:.3g}, one TF32 pass {err_tf32:.3g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_kernel_repeats_bit_for_bit(cuda, dtype):
+    args = _inputs(0, 2, 3000, 7, dtype, cuda)
     a = grc_kernel.grc_step(*args, 0.1, lo=9, dilation=3)
     b = grc_kernel.grc_step(*args, 0.1, lo=9, dilation=3)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -106,8 +168,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_window_too_large_for_shared_memory_raises_and_clears(cuda, dtype):
     """A dilation whose haloed window exceeds a CTA's shared memory (fp32:
-    (128 + 2000) rows of 128 B; bf16: (512 + 2000) rows of 144 B) fails at
-    launch with the CUDA error; the next launch is not affected by it."""
+    (256 + 2000) rows of 416 B, the window's hi and lo rows of 144 B each and
+    the staged row of 128 B, beside W2's hi and lo, 2 x 3 x 32 rows of 144 B;
+    bf16: (512 + 2000) rows of 144 B) fails at launch with the CUDA error;
+    the next launch is not affected by it."""
     args = _inputs(0, 1, 4096, 3, dtype, cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
         grc_kernel.grc_step(*args, 0.1, lo=0, dilation=1000)
