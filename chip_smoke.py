@@ -22,9 +22,20 @@ Phases, each printing its own line:
      conv) and of a plain copy of a step's input, from CUDA events around
      a CUDA graph of 10 calls; the bf16 and fp32 forwards' wall time, kernel
      and plain path, from CUDA events around one eager call;
-  6. trace: torch.profiler over 10 forwards of the kernel path: the device's
-     busy share of the window, launches per forward, the forward's peak
-     device memory and device time per kernel family.
+  6. cloning: the voice-cloning vocoder (``build_vocoder``: the generator
+     plus ECAPA-TDNN 512 -> 192 and Emotion2Vec d 512 x 6 layers x 8 heads
+     -> 256, TrainConfig()'s widths) in bf16, cloning 8 reference clips of
+     128 frames onto the 8 x 256 content frames of phase 4: the kernel path
+     against the plain path, 9 launches of the bf16 kernel per call, and the
+     waveform moved by more than that tolerance when the reference batch is
+     reversed; the fp32 extractor on the card against the same weights on
+     the CPU at 2 x 64 frames; the cloning call's and the generator's alone
+     (the extracted embeddings passed in) wall time;
+  7. traces: torch.profiler over 10 forwards of the kernel path, then over
+     10 cloning calls: the device's busy share of the window, launches per
+     call, the call's peak device memory and device time per kernel family
+     (attention its own), and the device time inside the extractor's and
+     attention's profiler ranges; then the bf16 forward's wall time again.
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
@@ -32,6 +43,7 @@ without a CUDA card it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -41,11 +53,13 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from hifigan_tpu_torch import GeneratorConfig, build_generator
+from hifigan_tpu_torch import GeneratorConfig, build_generator, build_vocoder
 from hifigan_tpu_torch.ops.cuda import build, grc_kernel
 from hifigan_tpu_torch.ops.grc_lora import group_stats
 
 BATCH, FRAMES, SAMPLE_RATE, HOP = 8, 256, 22050, 256
+REF_FRAMES = 128  # the cloning phase's reference clips
+EXTRACTOR_CHECK_SHAPE = (2, 64)  # batch, frames of the fp32 extractor's card-vs-CPU check
 C, GROUPS = 32, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # bf16: the tensor cores' dense rate.  fp32: the card's fastest fp32-accurate
@@ -111,9 +125,25 @@ def _family(name: str) -> str:
     low = name.lower()
     if "grc_step" in low:
         return "grc_step (CUDA kernel)"
-    if any(w in low for w in ("conv", "cudnn", "xmma", "gemm", "sm90")):
-        return "convolutions and matmuls (cuDNN / cuBLAS)"
+    if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
+        return "convolutions (cuDNN)"
+    if any(w in low for w in ("gemm", "gemv", "xmma", "sm90", "cutlass")):
+        return "matmuls (cuBLAS)"
     return "elementwise, reductions, copies"
+
+
+# Profiler ranges the port's modules open (torch.profiler.record_function):
+# the device time of the kernels launched inside each is reported as its own.
+SPANS = {"attention": "attention (MultiHeadAttention, projections included)",
+         "embedding_extractor": "embedding extractor (ECAPA-TDNN + Emotion2Vec)"}
+
+
+def _span_kernels(event):
+    """(name, us) of every kernel launched inside a CPU event's range."""
+    for k in event.kernels:
+        yield k.name, k.duration
+    for child in event.cpu_children:
+        yield from _span_kernels(child)
 
 
 def _trace(fn) -> dict:
@@ -121,7 +151,9 @@ def _trace(fn) -> dict:
     busy share of the window (union of kernel intervals over the window's
     CUDA-event time), launches per call, the peak device memory the calls
     take above what was allocated before them, and device ms per call for
-    each kernel family and the top kernels."""
+    each kernel family and the top kernels.  Kernels launched inside an
+    ``attention`` range form their own family; the device ms inside each
+    range of SPANS, and its share of the device time, are reported apart."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -135,7 +167,9 @@ def _trace(fn) -> dict:
             fn()
         end.record()
         end.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation and e.name not in SPANS]
     if not kernels:
         raise AssertionError("the profiler recorded no device events")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -150,12 +184,24 @@ def _trace(fn) -> dict:
         ms = (e.time_range.end - e.time_range.start) / 1e3 / TRACED_FORWARDS
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
         by_family[_family(e.name)] = by_family.get(_family(e.name), 0.0) + ms
+    device_ms = sum(by_family.values())
+    spans = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in SPANS:
+            for name, us in _span_kernels(e):
+                ms = us / 1e3 / TRACED_FORWARDS
+                spans[SPANS[e.name]] = spans.get(SPANS[e.name], 0.0) + ms
+                if e.name == "attention":
+                    by_family[_family(name)] -= ms
+                    by_family[SPANS["attention"]] = by_family.get(SPANS["attention"], 0.0) + ms
     window_ms = start.elapsed_time(end)
     return {
         "traced_forwards": TRACED_FORWARDS,
         "window_ms": window_ms,
         "device_busy_share": busy_us / 1e3 / window_ms,
         "launches_per_forward": len(kernels) / TRACED_FORWARDS,
+        "device_ms_per_forward": device_ms,
+        "spans_ms_per_forward": {n: {"ms": ms, "share_of_device_ms": ms / device_ms} for n, ms in spans.items()},
         "peak_memory_above_start_mib": (torch.cuda.max_memory_allocated() - held) / 2 ** 20,
         "ms_per_forward_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
         "ms_per_forward_top_kernels": [{"name": n[:120], "ms": ms} for n, ms in
@@ -167,6 +213,81 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """Spacing of bf16 values at |x| (8 significant bits)."""
     exp = torch.frexp(x.abs().clamp_min(2.0 ** -126)).exponent
     return torch.ldexp(torch.ones_like(x), (exp - 8).to(torch.int32))
+
+
+def _reference_mels(g: torch.Generator, batch: int, n_mels: int, frames: int) -> torch.Tensor:
+    """Reference clips ``[batch, n_mels, frames]`` on the card, each with a
+    spectral envelope of its own (an offset per mel bin, constant in time)
+    under frame noise, so that their embeddings differ: both encoders pool
+    over time, and clips of white noise alone pool to nearly one embedding."""
+    noise = torch.randn((batch, n_mels, frames), generator=g, device="cuda")
+    return noise * 0.5 + 2.0 * torch.randn((batch, n_mels, 1), generator=g, device="cuda")
+
+
+def _check_cloning(vocoder, mel: torch.Tensor, ref: torch.Tensor, n_steps: int) -> dict:
+    """The cloning call through the kernel path, against the plain path.
+
+    - Launches: ``grc_step_bf16`` exactly ``n_steps`` times in the kernel
+      path's call, counted from 0 just before it; ``grc_step_f32`` never.
+    - Kernel path against plain path: 4 bf16 ulps at the plain waveform's
+      peak, the generator phase's tolerance (the two differ only in fp32
+      summation order inside the steps; the extractor is the same code).
+    - Live conditioning: reversing the reference batch must move the
+      waveform by more than that tolerance, and the embeddings by more
+      than 1e-3.
+    - Outputs: finite waveform in [-1, 1] of 256 samples a frame; unit
+      embeddings of 192 and 256 dims."""
+    cfg = vocoder.generator.config
+    with torch.no_grad():
+        for name in grc_kernel.launches:
+            grc_kernel.launches[name] = 0
+        out = vocoder(mel, reference_mel=ref)
+        torch.cuda.synchronize()
+        launches = dict(grc_kernel.launches)
+        plain = vocoder(mel, reference_mel=ref, step=grc_kernel.grc_step_reference)
+        flipped = vocoder(mel, reference_mel=ref.flip(0))
+        torch.cuda.synchronize()
+    wav, wav_plain = out["waveform"], plain["waveform"]
+    expect = (mel.shape[0], 1, mel.shape[-1] * cfg.upsample_ratio)
+    if tuple(wav.shape) != expect or not bool(torch.isfinite(wav).all()) or float(wav.abs().max()) > 1.0:
+        raise AssertionError(f"cloning wav {tuple(wav.shape)} (expected {expect}) has non-finite values "
+                             "or values outside [-1, 1]")
+    for name, dim in (("speaker_embedding", cfg.speaker_dim), ("emotion_embedding", cfg.emotion_dim)):
+        norms = out[name].norm(dim=-1)
+        if tuple(out[name].shape) != (mel.shape[0], dim) or float((norms - 1).abs().max()) > 1e-3:
+            raise AssertionError(f"{name} {tuple(out[name].shape)} is not [{mel.shape[0]}, {dim}] of unit norm")
+    if launches != {"grc_step_bf16": n_steps, "grc_step_f32": 0}:
+        raise AssertionError(f"the cloning call launched the kernels {launches} times, expected "
+                             f"{n_steps} grc_step_bf16 and no grc_step_f32")
+    err = float((wav - wav_plain).abs().max())
+    tol = 4 * 2.0 ** -8 * float(wav_plain.abs().max())
+    moved = float((flipped["waveform"] - wav).abs().max())
+    moved_emb = min(float((flipped[n] - out[n]).abs().max()) for n in ("speaker_embedding", "emotion_embedding"))
+    if err > tol:
+        raise AssertionError(f"cloning kernel path differs from plain path by {err:.3g} > {tol:.3g}")
+    if moved <= tol or moved_emb <= 1e-3:
+        raise AssertionError(f"reversing the reference batch moves the waveform by {moved:.3g} (tolerance "
+                             f"{tol:.3g}) and the embeddings by {moved_emb:.3g}: the conditioning is not live")
+    return {"out": out, "launches": launches, "err": err, "tol": tol, "moved": moved, "moved_emb": moved_emb}
+
+
+def _check_extractor_fp32(seed: int) -> float:
+    """The fp32 extractor (TrainConfig() widths, every parameter redrawn) on
+    the card against a copy of it on the CPU, on the same reference clips
+    of EXTRACTOR_CHECK_SHAPE; TF32 is off, so both sum fp32 products in
+    another order only: 1e-4 on the unit embeddings."""
+    extractor = build_vocoder(GeneratorConfig(), torch.float32, "cuda", seed=seed).embedding_extractor
+    _redraw_parameters(extractor, seed)
+    on_cpu = copy.deepcopy(extractor).cpu()
+    batch, frames = EXTRACTOR_CHECK_SHAPE
+    ref = _reference_mels(torch.Generator(device="cuda").manual_seed(seed), batch, 80, frames)
+    with torch.no_grad():
+        card = extractor(ref)
+        cpu = on_cpu(ref.cpu())
+    err = max(float((c.cpu() - h).abs().max()) for c, h in zip(card, cpu))
+    if err > 1e-4:
+        raise AssertionError(f"the fp32 extractor on the card differs from the CPU by {err:.3g} > 1e-4")
+    return err
 
 
 def _step_inputs(k, d, dtype, normalised, seed):
@@ -357,9 +478,41 @@ def main() -> int:
               f"({audio_s / fwd_ms[dtype] * 1e3:.1f} audio-s/s), plain path {fwd_plain_ms[dtype]:.3f} ms "
               f"({audio_s / fwd_plain_ms[dtype] * 1e3:.1f} audio-s/s)")
 
-    # 6. trace: where the forward's device time goes
+    # 6. cloning: the voice-cloning vocoder through build_vocoder, in bf16.
+    # The generator is redrawn as in phase 4; the extractor keeps the seeded
+    # draw of the JAX package's initialisers (lecun-normal Dense kernels,
+    # zero biases, unit LayerNorm scales): redrawn as the generator is, its
+    # biases swamp its input and every reference gives nearly one embedding,
+    # so no check could see the conditioning.  The fp32 extractor check
+    # redraws every parameter.
+    vocoder = build_vocoder(cfg, torch.bfloat16, "cuda", seed=0)
+    _redraw_parameters(vocoder.generator, seed=3)
+    ref = _reference_mels(torch.Generator(device="cuda").manual_seed(2), BATCH, cfg.input_channels, REF_FRAMES)
+    clone = _check_cloning(vocoder, mel, ref, len(steps))
+    ext_err = _check_extractor_fp32(seed=4)
+    print(f"cloning: wav {tuple(clone['out']['waveform'].shape)} from content [{BATCH}, {cfg.input_channels}, "
+          f"{FRAMES}] and references [{BATCH}, {cfg.input_channels}, {REF_FRAMES}], bf16 finite; kernel vs plain "
+          f"path max err {clone['err']:.3g} (tol {clone['tol']:.3g}); reversing the references moves the wav by "
+          f"{clone['moved']:.3g} ({clone['moved'] / clone['tol']:.1f}x tol) and the embeddings by "
+          f"{clone['moved_emb']:.3g}; fp32 extractor card vs CPU at {list(EXTRACTOR_CHECK_SHAPE)} max err "
+          f"{ext_err:.3g} (tol 1e-4); kernel launches {clone['launches']}")
+    spk_x, emo_x = clone["out"]["speaker_embedding"], clone["out"]["emotion_embedding"]
+    with torch.no_grad():
+        clone_ms = _time_ms(lambda: vocoder(mel, reference_mel=ref))
+        gen_alone_ms = _time_ms(lambda: vocoder(mel, spk_x, emo_x))
+    print(f"timing_cloning: batch {BATCH} x {FRAMES} content frames, {BATCH} x {REF_FRAMES} reference frames, "
+          f"bf16: cloning call {clone_ms:.3f} ms ({audio_s / clone_ms * 1e3:.1f} audio-s/s); generator alone with "
+          f"the extracted embeddings passed in {gen_alone_ms:.3f} ms ({audio_s / gen_alone_ms * 1e3:.1f} audio-s/s)")
+
+    # 7. traces: where the device time goes, in the forward and in the
+    # cloning call.  Last, after every timing: once the profiler has traced
+    # the card, the host's launches may stay slower.
     with torch.no_grad():
         print("trace: " + json.dumps(_trace(lambda: model(mel, spk, emo))))
+        print("trace: " + json.dumps({"call": "cloning", **_trace(lambda: vocoder(mel, reference_mel=ref))}))
+        after_ms = _time_ms(lambda: model(mel, spk, emo))
+    print(f"timing_after_trace: the bf16 forward again, after the profiler: {after_ms:.3f} ms (before it, "
+          f"phase 5: {fwd_ms[torch.bfloat16]:.3f} ms)")
 
     kernels = []
     for name, source, dtype in (("grc_step_bf16", "hifigan_tpu_torch/csrc/grc_step_bf16.cu", torch.bfloat16),

@@ -1,12 +1,14 @@
-"""Entry points: build the flagship generator and example inputs.
+"""Entry points: build the flagship generator, the voice-cloning vocoder
+and example inputs.
 
-Both run on the card unless the caller passes ``device="cpu"``."""
+All run on the card unless the caller passes ``device="cpu"``."""
 
 from __future__ import annotations
 
 import torch
 
 from hifigan_tpu_torch.models.generator import Generator, GeneratorConfig
+from hifigan_tpu_torch.models.vocoder import ModifiedVocoder
 
 
 def _device(device: str | torch.device) -> torch.device:
@@ -27,6 +29,25 @@ def build_generator(
     device = _device(device)
     gen = torch.Generator().manual_seed(seed)
     return Generator(config, dtype, gen=gen).to(device).eval()
+
+
+def build_vocoder(
+    config: GeneratorConfig = GeneratorConfig(),
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+    ecapa_channels: int = 512,
+    emo_hidden: int = 512,
+    emo_layers: int = 6,
+    emo_heads: int = 8,
+) -> ModifiedVocoder:
+    """A ``ModifiedVocoder`` (generator + ECAPA-TDNN + Emotion2Vec; the
+    defaults are ``TrainConfig()``'s widths) with weights drawn from
+    ``seed``, on ``device``, computing in ``dtype``."""
+    device = _device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return ModifiedVocoder(config, ecapa_channels, emo_hidden, emo_layers, emo_heads, dtype,
+                           gen=gen).to(device).eval()
 
 
 def entry(device: str | torch.device = "cuda"):

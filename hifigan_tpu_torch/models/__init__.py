@@ -1,5 +1,6 @@
 """Models of the port."""
 
+from hifigan_tpu_torch.models.embeddings import EcapaTdnn, EmbeddingExtractor, Emotion2Vec
 from hifigan_tpu_torch.models.generator import (
     FiLM,
     Generator,
@@ -7,5 +8,7 @@ from hifigan_tpu_torch.models.generator import (
     GRCLoRABlock,
     ODConvTranspose1d,
 )
+from hifigan_tpu_torch.models.vocoder import ModifiedVocoder
 
-__all__ = ["FiLM", "Generator", "GeneratorConfig", "GRCLoRABlock", "ODConvTranspose1d"]
+__all__ = ["EcapaTdnn", "EmbeddingExtractor", "Emotion2Vec", "FiLM", "Generator", "GeneratorConfig",
+           "GRCLoRABlock", "ModifiedVocoder", "ODConvTranspose1d"]

@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from hifigan_tpu_torch.models.layers import Dense, _const, _normal
 from hifigan_tpu_torch.ops import conv as conv_ops
 from hifigan_tpu_torch.ops import grc_lora as lora_ops
 from hifigan_tpu_torch.ops import odconv as od_ops
@@ -65,32 +66,12 @@ class GeneratorConfig:
         return r
 
 
-def _normal(gen: torch.Generator, std: float, *shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.randn(shape, generator=gen) * std)
-
-
-def _const(value: float, *shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, float(value)))
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense`` in fp32: ``x @ kernel + bias``, kernel ``[in, out]``."""
-
-    def __init__(self, in_features: int, out_features: int, std: float, gen: torch.Generator):
-        super().__init__()
-        self.kernel = _normal(gen, std, in_features, out_features)
-        self.bias = _const(0.0, out_features)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float() @ self.kernel + self.bias
-
-
 class FiLM(nn.Module):
     """``concat(spk, emo) → Dense → (δ, β)``, applied as ``(1 + δ)·x + β``."""
 
     def __init__(self, features: int, cond_dim: int, gen: torch.Generator):
         super().__init__()
-        self.proj = Dense(cond_dim, 2 * features, 0.01, gen)
+        self.proj = Dense(cond_dim, 2 * features, gen, std=0.01)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         gamma, beta = self.proj(cond).chunk(2, dim=-1)
@@ -102,10 +83,10 @@ class _ODAttentionHeads(nn.Module):
 
     def __init__(self, in_features, out_features, kernel_taps, num_kernels, gen):
         super().__init__()
-        self.kernel_head = Dense(in_features, num_kernels, 0.02, gen)
-        self.spatial_head = Dense(in_features, kernel_taps, 0.02, gen)
-        self.in_ch_head = Dense(in_features, in_features, 0.02, gen)
-        self.out_ch_head = Dense(in_features, out_features, 0.02, gen)
+        self.kernel_head = Dense(in_features, num_kernels, gen, std=0.02)
+        self.spatial_head = Dense(in_features, kernel_taps, gen, std=0.02)
+        self.in_ch_head = Dense(in_features, in_features, gen, std=0.02)
+        self.out_ch_head = Dense(in_features, out_features, gen, std=0.02)
 
     def forward(self, x: torch.Tensor) -> od_ops.ODAttention:
         pooled = x.float().mean(dim=1)

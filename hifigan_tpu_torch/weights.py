@@ -2,7 +2,10 @@
 
 The port's parameters are named after the JAX leaves and keep their
 layouts, so a flax path ``params/film_0/proj/kernel`` is the torch name
-``film_0.proj.kernel`` and the values copy over unchanged.
+``film_0.proj.kernel`` (``params/embedding_extractor/ecapa/block_0/
+res2_kernel_1`` is ``embedding_extractor.ecapa.block_0.res2_kernel_1``)
+and the values copy over unchanged.  One loader serves every module of
+the port: the generator, the encoders and the vocoder facade.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield name, value
 
 
-def load_jax_generator_params(module: nn.Module, tree: Mapping) -> nn.Module:
+def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
     """Fill ``module``'s parameters from a flax param dict (nested dicts of
     numpy arrays, with or without the top-level ``"params"`` key).
 
@@ -36,7 +39,7 @@ def load_jax_generator_params(module: nn.Module, tree: Mapping) -> nn.Module:
         raise KeyError(f"parameter mismatch: missing {sorted(missing)}, unexpected {sorted(unexpected)}")
     values = {}
     for name, p in own.items():
-        v = torch.as_tensor(np.asarray(flat[name], dtype=np.float32))
+        v = torch.from_numpy(np.array(flat[name], dtype=np.float32))
         if v.shape != p.shape:
             raise ValueError(f"{name}: JAX shape {tuple(v.shape)} != port shape {tuple(p.shape)}")
         values[name] = v
@@ -44,3 +47,6 @@ def load_jax_generator_params(module: nn.Module, tree: Mapping) -> nn.Module:
         for name, p in own.items():
             p.copy_(values[name])
     return module
+
+
+load_jax_generator_params = load_jax_params  # the generator-slice name, kept for its callers
