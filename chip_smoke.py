@@ -31,10 +31,22 @@ Phases, each printing its own line:
      reversed; the fp32 extractor on the card against the same weights on
      the CPU at 2 x 64 frames; the cloning call's and the generator's alone
      (the extracted embeddings passed in) wall time;
-  7. traces: torch.profiler over 10 forwards of the kernel path, then over
-     10 cloning calls: the device's busy share of the window, launches per
-     call, the call's peak device memory and device time per kernel family
-     (attention its own), and the device time inside the extractor's and
+  7. training: the GAN trainer (create_train_state(TrainConfig()) in bf16:
+     the cloning vocoder of phase 6 and the MPD/MSD discriminators) for 2 + 5
+     steps of 16 x 8192 samples drawn on the card from seeded synthetic rows
+     (make_device_sampler), as `cli train --bf16 --device_data` runs it:
+     finite losses, no GRC-kernel launch in the train steps (they
+     differentiate the plain chain), parameters that change, the median
+     step time by CUDA events, audio-seconds trained a second and peak
+     memory; the eval step on the kernel path (9 launches) against the plain
+     path; one fp32 step on the card against the CPU at 1 x 4096 (TF32 off);
+     a checkpoint round trip (save after step 2, restore into a fresh
+     trainer, step 3 in both gives the same losses, cuDNN deterministic);
+  8. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
+     calls and 3 train steps: the device's busy share of the window, launches
+     per call, the call's peak device memory and device time per kernel
+     family (attention, the convolutions' backward, FFT and the optimiser
+     each its own), and the device time inside the extractor's and
      attention's profiler ranges; then the bf16 forward's wall time again.
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -49,13 +61,18 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 
 import torch
 import torch.nn.functional as F
 
-from hifigan_tpu_torch import GeneratorConfig, build_generator, build_vocoder
+from hifigan_tpu_torch import GeneratorConfig, TrainConfig, build_generator, build_vocoder, create_train_state
 from hifigan_tpu_torch.ops.cuda import build, grc_kernel
 from hifigan_tpu_torch.ops.grc_lora import group_stats
+from hifigan_tpu_torch.train import audio_to_mel, make_eval_step, make_train_step
+from hifigan_tpu_torch.train.checkpoint import CheckpointManager
+from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
+from hifigan_tpu_torch.train.device_data import build_audio_bank, make_device_sampler
 
 BATCH, FRAMES, SAMPLE_RATE, HOP = 8, 256, 22050, 256
 REF_FRAMES = 128  # the cloning phase's reference clips
@@ -70,6 +87,13 @@ RUNS, WARMUP = 25, 3
 GRAPH_CALLS = 10
 TRACED_FORWARDS = 10
 T_AUDIO = FRAMES * HOP
+# The training phase: bench.py::bench_train_step_production's shape (16 x
+# 8192 samples, 32 mel frames at 16 kHz), drawn on the card from a bank of
+# seeded synthetic rows; the fp32 card-vs-CPU check and the checkpoint round
+# trip at batch 1 x 4096.
+TRAIN_BATCH, TRAIN_SEGMENT, TRAIN_SAMPLE_RATE, TRAIN_BANK_ROWS = 16, 8192, 16000, 64
+TRAIN_WARMUP, TRAIN_TIMED, TRACED_TRAIN_STEPS = 2, 5, 3
+TRAIN_CHECK_SEGMENT = 4096
 
 
 def _time_ms(fn) -> float:
@@ -125,8 +149,10 @@ def _family(name: str) -> str:
     low = name.lower()
     if "grc_step" in low:
         return "grc_step (CUDA kernel)"
+    if "fft" in low:
+        return "FFT (cuFFT)"
     if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
-        return "convolutions (cuDNN)"
+        return "convolutions forward (cuDNN)"
     if any(w in low for w in ("gemm", "gemv", "xmma", "sm90", "cutlass")):
         return "matmuls (cuBLAS)"
     return "elementwise, reductions, copies"
@@ -136,6 +162,13 @@ def _family(name: str) -> str:
 # the device time of the kernels launched inside each is reported as its own.
 SPANS = {"attention": "attention (MultiHeadAttention, projections included)",
          "embedding_extractor": "embedding extractor (ECAPA-TDNN + Emotion2Vec)"}
+# CPU ranges, by the start of their name, whose kernels form a family of
+# their own whatever their names: attention, the convolutions' backward
+# (cuDNN's dgrad and wgrad kernels, some named like forward ones) and
+# torch.optim's step (its fused Adam kernels).
+FAMILY_RANGES = (("attention", SPANS["attention"]),
+                 ("aten::convolution_backward", "convolutions backward (cuDNN)"),
+                 ("Optimizer.step", "optimiser (torch.optim fused Adam)"))
 
 
 def _span_kernels(event):
@@ -146,13 +179,13 @@ def _span_kernels(event):
         yield from _span_kernels(child)
 
 
-def _trace(fn) -> dict:
-    """Trace TRACED_FORWARDS calls of ``fn`` with torch.profiler: the device's
-    busy share of the window (union of kernel intervals over the window's
+def _trace(fn, calls: int = TRACED_FORWARDS) -> dict:
+    """Trace ``calls`` calls of ``fn`` with torch.profiler: the device's busy
+    share of the window (union of kernel intervals over the window's
     CUDA-event time), launches per call, the peak device memory the calls
     take above what was allocated before them, and device ms per call for
-    each kernel family and the top kernels.  Kernels launched inside an
-    ``attention`` range form their own family; the device ms inside each
+    each kernel family and the top kernels.  Kernels launched inside a
+    range of FAMILY_RANGES form that family; the device ms inside each
     range of SPANS, and its share of the device time, are reported apart."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,7 +196,7 @@ def _trace(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(TRACED_FORWARDS):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
@@ -172,40 +205,45 @@ def _trace(fn) -> dict:
                and not e.is_user_annotation and e.name not in SPANS]
     if not kernels:
         raise AssertionError("the profiler recorded no device events")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, (cur_s, cur_e) = 0.0, spans[0]
-    for s, e in spans[1:]:
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, (cur_s, cur_e) = 0.0, intervals[0]
+    for s, e in intervals[1:]:
         if s > cur_e:
             busy_us, cur_s = busy_us + cur_e - cur_s, s
         cur_e = max(cur_e, e)
     busy_us += cur_e - cur_s
     by_name, by_family = {}, {}
     for e in kernels:
-        ms = (e.time_range.end - e.time_range.start) / 1e3 / TRACED_FORWARDS
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / calls
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
         by_family[_family(e.name)] = by_family.get(_family(e.name), 0.0) + ms
     device_ms = sum(by_family.values())
     spans = {}
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name in SPANS:
-            for name, us in _span_kernels(e):
-                ms = us / 1e3 / TRACED_FORWARDS
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        family = next((label for prefix, label in FAMILY_RANGES if e.name.startswith(prefix)), None)
+        if e.name not in SPANS and family is None:
+            continue
+        for name, us in _span_kernels(e):
+            ms = us / 1e3 / calls
+            if e.name in SPANS:
                 spans[SPANS[e.name]] = spans.get(SPANS[e.name], 0.0) + ms
-                if e.name == "attention":
-                    by_family[_family(name)] -= ms
-                    by_family[SPANS["attention"]] = by_family.get(SPANS["attention"], 0.0) + ms
+            if family is not None:
+                by_family[_family(name)] -= ms
+                by_family[family] = by_family.get(family, 0.0) + ms
     window_ms = start.elapsed_time(end)
     return {
-        "traced_forwards": TRACED_FORWARDS,
+        "traced_calls": calls,
         "window_ms": window_ms,
         "device_busy_share": busy_us / 1e3 / window_ms,
-        "launches_per_forward": len(kernels) / TRACED_FORWARDS,
-        "device_ms_per_forward": device_ms,
-        "spans_ms_per_forward": {n: {"ms": ms, "share_of_device_ms": ms / device_ms} for n, ms in spans.items()},
+        "launches_per_call": len(kernels) / calls,
+        "device_ms_per_call": device_ms,
+        "spans_ms_per_call": {n: {"ms": ms, "share_of_device_ms": ms / device_ms} for n, ms in spans.items()},
         "peak_memory_above_start_mib": (torch.cuda.max_memory_allocated() - held) / 2 ** 20,
-        "ms_per_forward_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
-        "ms_per_forward_top_kernels": [{"name": n[:120], "ms": ms} for n, ms in
-                                       sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+        "ms_per_call_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+        "ms_per_call_top_kernels": [{"name": n[:120], "ms": ms} for n, ms in
+                                    sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
     }
 
 
@@ -288,6 +326,159 @@ def _check_extractor_fp32(seed: int) -> float:
     if err > 1e-4:
         raise AssertionError(f"the fp32 extractor on the card differs from the CPU by {err:.3g} > 1e-4")
     return err
+
+
+def _reset_launches() -> None:
+    for name in grc_kernel.launches:
+        grc_kernel.launches[name] = 0
+
+
+def _state_tensors(state) -> dict:
+    """Every parameter of a train state and its two Adam moments, by name."""
+    out = {}
+    for model, opt in (("vocoder", state.gen_opt), ("discriminators", state.disc_opt)):
+        for name, p in getattr(state, model).named_parameters():
+            out[f"{model}.{name}"] = p.detach()
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[f"{model}.{name}.{key}"] = opt.adam.state[p][key]
+    return out
+
+
+def _grad_errors(card_state, cpu_state) -> float:
+    """Worst gradient error of the card's step against the CPU's, as a share
+    of its tolerance: 1e-3 of the leaf's max |g| plus 1e-6 of the model's
+    (for leaves whose gradient is zero but for rounding)."""
+    worst = 0.0
+    for model in ("vocoder", "discriminators"):
+        cpu = dict(getattr(cpu_state, model).named_parameters())
+        top = max(float(p.grad.abs().max()) for p in cpu.values())
+        for name, p in getattr(card_state, model).named_parameters():
+            want = cpu[name].grad
+            tol = 1e-3 * float(want.abs().max()) + 1e-6 * top
+            worst = max(worst, float((p.grad.cpu() - want).abs().max()) / tol)
+    return worst
+
+
+def _check_training(cfg: TrainConfig) -> dict:
+    """The GAN trainer on the card, through ``create_train_state`` and
+    ``make_train_step`` as ``cli train --device_data --bf16`` drives them.
+
+    - bf16 at TrainConfig() widths, 16 x 8192 samples a step drawn on the
+      card: TRAIN_WARMUP + TRAIN_TIMED steps, each timed by CUDA events;
+      every loss finite; no grc_step launch (the step differentiates the
+      plain GRC chain, as JAX trains on its XLA chain); more than 90% of the
+      generator's and the discriminators' parameter tensors changed (the
+      first update has learning rate 0, the warmup's start); peak memory.
+    - The eval step (no_grad, the kernel path): 9 grc_step_bf16 launches,
+      its waveform within the generator phase's tolerance (4 bf16 ulps of
+      the peak) of the plain path's.
+    - fp32, batch 1 x TRAIN_CHECK_SEGMENT, TF32 off: one step on the card
+      against the same step on the CPU (same weights, same audio): every
+      loss within 1e-4 relative, every parameter's gradient within 1e-3 of
+      its leaf's max |g| plus 1e-6 of its model's.  The vocoder's
+      parameters are redrawn first (_redraw_parameters): at the seeded draw
+      of the JAX package's initialisers the generator's output is nearly
+      silent, its log-mel sits on the 1e-5 floor, and bins a rounding away
+      from the floor switch the mel loss's gradient on or off on one side
+      only.  The discriminators keep that draw: redrawn, their biases
+      swamp their input, and the feature-matching loss becomes a difference
+      of nearly equal outputs.
+    - Checkpoint round trip, cuDNN deterministic: after step 2 of the fp32
+      card trainer, save; take step 3; a fresh trainer restored from the
+      file holds the same parameters and Adam moments bit for bit, and its
+      step 3 on the same audio gives the same losses bit for bit."""
+    state = create_train_state(cfg, torch.bfloat16, "cuda", seed=0)
+    bank, lengths = build_audio_bank(SyntheticSpeechDataset(segment_samples=TRAIN_SEGMENT, size=TRAIN_BANK_ROWS))
+    sample = make_device_sampler(torch.from_numpy(bank).cuda(), torch.from_numpy(lengths), TRAIN_SEGMENT,
+                                 TRAIN_BATCH)
+    step = make_train_step(cfg, sample_fn=sample)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = {m: {n: p.detach().clone() for n, p in getattr(state, m).named_parameters()}
+              for m in ("vocoder", "discriminators")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _reset_launches()
+    times, metrics = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step(state, gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append(m)
+    train_launches = dict(grc_kernel.launches)
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if not all(math.isfinite(v) for vs in losses.values() for v in vs):
+        raise AssertionError(f"non-finite training losses: {losses}")
+    if any(train_launches.values()):
+        raise AssertionError(f"the train steps launched the GRC kernels {train_launches} times, expected none")
+    changed = {m: sum(not torch.equal(p.detach(), before[m][n]) for n, p in getattr(state, m).named_parameters())
+               for m in before}
+    for m, n in changed.items():
+        if n <= 0.9 * len(before[m]):
+            raise AssertionError(f"only {n} of the {len(before[m])} {m} parameter tensors changed in training")
+    del before
+
+    audio = sample(torch.Generator(device="cuda").manual_seed(1))
+    _reset_launches()
+    evaluated = make_eval_step(cfg)(state.vocoder, {"audio": audio})
+    torch.cuda.synchronize()
+    eval_launches = dict(grc_kernel.launches)
+    with torch.no_grad():
+        plain = state.vocoder(audio_to_mel(audio, cfg), step=grc_kernel.grc_step_reference)["waveform"]
+    wav = evaluated["waveform"]
+    eval_err = float((wav - plain).abs().max())
+    eval_tol = 4 * 2.0 ** -8 * float(plain.abs().max())
+    if eval_launches != {"grc_step_bf16": 9, "grc_step_f32": 0}:
+        raise AssertionError(f"the eval step launched the kernels {eval_launches} times, expected 9 grc_step_bf16")
+    if tuple(wav.shape) != (TRAIN_BATCH, 1, TRAIN_SEGMENT) or not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"eval waveform {tuple(wav.shape)} is not finite [{TRAIN_BATCH}, 1, {TRAIN_SEGMENT}]")
+    if eval_err > eval_tol:
+        raise AssertionError(f"eval step kernel path differs from plain path by {eval_err:.3g} > {eval_tol:.3g}")
+
+    card, cpu = (create_train_state(cfg, torch.float32, dev, seed=5) for dev in ("cuda", "cpu"))
+    _redraw_parameters(card.vocoder, seed=7)
+    for model in ("vocoder", "discriminators"):
+        getattr(cpu, model).load_state_dict(getattr(card, model).state_dict())
+    rows = [torch.from_numpy(bank[i:i + 1, :TRAIN_CHECK_SEGMENT].copy()) for i in (3, 4, 5)]
+    plain_step = make_train_step(cfg)
+    m_card = {k: float(v) for k, v in plain_step(card, {"audio": rows[0].cuda()})[1].items()}
+    m_cpu = {k: float(v) for k, v in plain_step(cpu, {"audio": rows[0]})[1].items()}
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    grad_share = _grad_errors(card, cpu)
+    if loss_err > 1e-4 or grad_share > 1:
+        raise AssertionError(f"the fp32 step on the card differs from the CPU's: losses {m_card} vs {m_cpu} "
+                             f"(max rel err {loss_err:.3g}), gradients at {grad_share:.3g} of their tolerance")
+    del cpu
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain_step(card, {"audio": rows[1].cuda()})
+        with tempfile.TemporaryDirectory() as directory:
+            mgr = CheckpointManager(directory)
+            if not mgr.save(card) or mgr.all_steps() != [2]:
+                raise AssertionError(f"the checkpoint of step 2 was not written: {mgr.all_steps()}")
+            saved = {k: v.clone() for k, v in _state_tensors(card).items()}
+            m3 = plain_step(card, {"audio": rows[2].cuda()})[1]
+            fresh = mgr.restore(create_train_state(cfg, torch.float32, "cuda", seed=6))
+        restored = _state_tensors(fresh)
+        differ = [k for k, v in saved.items() if not torch.equal(v, restored[k])]
+        if differ or fresh.step != 2 or fresh.gen_opt.count != 2 or fresh.disc_opt.count != 2:
+            raise AssertionError(f"the restored state differs from the saved one: {differ[:5]}, step {fresh.step}")
+        m3_restored = plain_step(fresh, {"audio": rows[2].cuda()})[1]
+        if any(not torch.equal(m3[k], m3_restored[k]) for k in m3):
+            raise AssertionError(f"step 3 after a restore gives other losses: {m3} vs {m3_restored}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n_params = {m: sum(p.numel() for p in getattr(state, m).parameters()) for m in ("vocoder", "discriminators")}
+    return {"state": state, "step": step, "gen": gen, "times": times, "losses": losses, "peak_mib": peak_mib,
+            "train_launches": train_launches, "changed": changed, "n_params": n_params, "n_tensors":
+            {m: len(list(getattr(state, m).parameters())) for m in n_params}, "eval_launches": eval_launches,
+            "eval_err": eval_err, "eval_tol": eval_tol, "loss_err": loss_err, "grad_share": grad_share,
+            "round_trip_losses": {k: float(v) for k, v in m3.items()}}
 
 
 def _step_inputs(k, d, dtype, normalised, seed):
@@ -504,12 +695,37 @@ def main() -> int:
           f"bf16: cloning call {clone_ms:.3f} ms ({audio_s / clone_ms * 1e3:.1f} audio-s/s); generator alone with "
           f"the extracted embeddings passed in {gen_alone_ms:.3f} ms ({audio_s / gen_alone_ms * 1e3:.1f} audio-s/s)")
 
-    # 7. traces: where the device time goes, in the forward and in the
-    # cloning call.  Last, after every timing: once the profiler has traced
-    # the card, the host's launches may stay slower.
+    # 7. training: the GAN trainer at TrainConfig() widths, checked and
+    # timed before any trace
+    train = _check_training(TrainConfig())
+    print(f"train: TrainConfig() bf16, {train['n_params']['vocoder']} generator + extractor and "
+          f"{train['n_params']['discriminators']} discriminator parameters, {TRAIN_BATCH} x {TRAIN_SEGMENT} samples a "
+          f"step from the on-card sampler; {TRAIN_WARMUP + TRAIN_TIMED} steps, losses finite: "
+          f"{json.dumps(train['losses'])}; kernel launches in the train steps {train['train_launches']}; parameter "
+          f"tensors changed {train['changed']} of {train['n_tensors']}; eval step kernel vs plain path max err "
+          f"{train['eval_err']:.3g} (tol {train['eval_tol']:.3g}), kernel launches {train['eval_launches']}; fp32 "
+          f"card vs CPU at [1, {TRAIN_CHECK_SEGMENT}]: max loss rel err {train['loss_err']:.3g} (tol 1e-4), worst "
+          f"gradient err {train['grad_share']:.3g} of its tolerance; checkpoint round trip after step 2: state "
+          f"restored bit for bit, step 3 losses equal {json.dumps(train['round_trip_losses'])}")
+    step_ms = statistics.median(train["times"][TRAIN_WARMUP:])
+    train_audio_s = TRAIN_BATCH * TRAIN_SEGMENT / TRAIN_SAMPLE_RATE
+    print(f"timing_train: {TRAIN_BATCH} x {TRAIN_SEGMENT} samples, bf16: median {step_ms:.3f} ms a step over "
+          f"{TRAIN_TIMED} steps after {TRAIN_WARMUP} ({json.dumps([round(t, 3) for t in train['times']])} ms), "
+          f"{train_audio_s / step_ms * 1e3:.1f} audio-s trained a second; peak device memory "
+          f"{train['peak_mib']:.1f} MiB above the state's parameters")
+
+    # 8. traces: where the device time goes, in the forward, the cloning call
+    # and a train step.  Last, after every timing: once the profiler has
+    # traced the card, the host's launches may stay slower.
     with torch.no_grad():
         print("trace: " + json.dumps(_trace(lambda: model(mel, spk, emo))))
         print("trace: " + json.dumps({"call": "cloning", **_trace(lambda: vocoder(mel, reference_mel=ref))}))
+    _reset_launches()
+    train_trace = _trace(lambda: train["step"](train["state"], train["gen"]), calls=TRACED_TRAIN_STEPS)
+    if any(grc_kernel.launches.values()):
+        raise AssertionError(f"the traced train steps launched the GRC kernels {grc_kernel.launches}")
+    print("trace: " + json.dumps({"call": "train_step", **train_trace}))
+    with torch.no_grad():
         after_ms = _time_ms(lambda: model(mel, spk, emo))
     print(f"timing_after_trace: the bf16 forward again, after the profiler: {after_ms:.3f} ms (before it, "
           f"phase 5: {fwd_ms[torch.bfloat16]:.3f} ms)")

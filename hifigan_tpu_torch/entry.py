@@ -11,7 +11,9 @@ from hifigan_tpu_torch.models.generator import Generator, GeneratorConfig
 from hifigan_tpu_torch.models.vocoder import ModifiedVocoder
 
 
-def _device(device: str | torch.device) -> torch.device:
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it is a CUDA device and
+    there is no card."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
@@ -26,7 +28,7 @@ def build_generator(
 ) -> Generator:
     """A ``Generator`` with weights drawn from ``seed`` (the JAX package's
     initialisers), on ``device``, computing in ``dtype``."""
-    device = _device(device)
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return Generator(config, dtype, gen=gen).to(device).eval()
 
@@ -44,7 +46,7 @@ def build_vocoder(
     """A ``ModifiedVocoder`` (generator + ECAPA-TDNN + Emotion2Vec; the
     defaults are ``TrainConfig()``'s widths) with weights drawn from
     ``seed``, on ``device``, computing in ``dtype``."""
-    device = _device(device)
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return ModifiedVocoder(config, ecapa_channels, emo_hidden, emo_layers, emo_heads, dtype,
                            gen=gen).to(device).eval()
@@ -54,7 +56,7 @@ def entry(device: str | torch.device = "cuda"):
     """Returns ``(model, (mel, spk, emo))``: the flagship generator (full
     config, bf16, seed 0) and a batch of 2 × 64 mel frames, the counterpart
     of ``__graft_entry__.entry()``."""
-    device = _device(device)
+    device = resolve_device(device)
     model = build_generator(GeneratorConfig(), torch.bfloat16, device, seed=0)
     gens = [torch.Generator().manual_seed(s) for s in (0, 1, 2)]
     mel = torch.randn((2, 80, 64), generator=gens[0])

@@ -1,5 +1,6 @@
 """Models of the port."""
 
+from hifigan_tpu_torch.models.discriminators import Discriminators
 from hifigan_tpu_torch.models.embeddings import EcapaTdnn, EmbeddingExtractor, Emotion2Vec
 from hifigan_tpu_torch.models.generator import (
     FiLM,
@@ -10,5 +11,5 @@ from hifigan_tpu_torch.models.generator import (
 )
 from hifigan_tpu_torch.models.vocoder import ModifiedVocoder
 
-__all__ = ["EcapaTdnn", "EmbeddingExtractor", "Emotion2Vec", "FiLM", "Generator", "GeneratorConfig",
+__all__ = ["Discriminators", "EcapaTdnn", "EmbeddingExtractor", "Emotion2Vec", "FiLM", "Generator", "GeneratorConfig",
            "GRCLoRABlock", "ModifiedVocoder", "ODConvTranspose1d"]

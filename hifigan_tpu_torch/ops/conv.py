@@ -1,11 +1,11 @@
 """Convolution primitives of the port, channels-last.
 
 Counterpart of ``hifigan_tpu/ops/conv.py``.  The public functions keep the
-JAX package's layouts: activations ``[B, T, C]``, conv kernels
-``[k, Cin, Cout]`` (WIO), transposed-conv kernels ``[Cin, Cout, k]`` and
-per-sample kernels with a leading batch dim.  PyTorch's convolutions take
-``[B, C, T]`` and ``[Cout, Cin, k]``, so each function transposes at its
-boundary.
+JAX package's layouts: activations ``[B, T, C]`` (2-D: ``[B, H, W, C]``),
+conv kernels ``[k, Cin, Cout]`` (WIO; 2-D: ``[kh, kw, Cin, Cout]``, HWIO),
+transposed-conv kernels ``[Cin, Cout, k]`` and per-sample kernels with a
+leading batch dim.  PyTorch's convolutions take ``[B, C, T]`` and
+``[Cout, Cin, k]``, so each function transposes at its boundary.
 
 The JAX package's polyphase and time-folded formulations
 (``folded_polyphase_*``, ``ops/fold.py``) pack four time steps into the
@@ -38,6 +38,33 @@ def conv1d(
     if b is not None:
         y = y + b.to(y.dtype)
     return y.to(x.dtype)
+
+
+def conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    padding: int | tuple[int, int] = 0,
+) -> torch.Tensor:
+    """2-D convolution: ``x [B, H, W, Cin]``, ``w [kh, kw, Cin, Cout]``,
+    ``b [Cout]``; ``padding`` is symmetric on each axis (one int for both,
+    or ``(ph, pw)``).  The bias is cast to the activation dtype, as in the
+    JAX package."""
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype), padding=(ph, pw))
+    y = y.permute(0, 2, 3, 1)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y.to(x.dtype)
+
+
+def avg_pool1d(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
+    """Average pool over time of ``x [B, T, C]``: VALID windows, the sum in
+    fp32 divided by ``window``, cast back to ``x``'s dtype (torch
+    ``AvgPool1d`` semantics, as the JAX package's)."""
+    y = F.avg_pool1d(x.float().transpose(1, 2), window, stride or window)
+    return y.transpose(1, 2).to(x.dtype)
 
 
 def dynamic_conv_transpose1d(

@@ -1,0 +1,168 @@
+"""The alternating GAN train step, and the eval step.
+
+Counterpart of ``hifigan_tpu/train/train_step.py``:
+
+1. ``fake = G(mel)``, mel computed from the real audio on the device;
+2. discriminator update on ``(real, fake.detach())``;
+3. generator update **against the updated discriminator**: adversarial +
+   10·feature matching + 45·mel L1 (+ the optional multi-resolution STFT
+   loss), the mel of the generated audio by the real log-mel transform.
+
+The generator runs with ``step=grc_step_reference``: the CUDA GRC-step
+kernel has no backward, and the JAX package trains on its XLA chain, not on
+the Pallas kernel, for the same reason.  Phase 3 reuses phase 1's graph:
+the generator's parameters do not change in between, so the values are
+those of a second forward.  The discriminators' parameters are frozen
+during phase 3, so its backward leaves them alone; after a step each
+parameter's ``.grad`` is the gradient its optimiser applied.  The eval step
+runs under ``no_grad`` on the kernel path.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from hifigan_tpu_torch.ops.cuda.grc_kernel import grc_step_reference
+from hifigan_tpu_torch.ops.stft import log_mel_spectrogram, multi_resolution_stft_loss
+from hifigan_tpu_torch.train.losses import (
+    discriminator_loss,
+    feature_matching_loss,
+    generator_adversarial_loss,
+    mel_l1_loss,
+)
+from hifigan_tpu_torch.train.state import GanTrainState, TrainConfig
+
+
+def audio_to_mel(audio: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
+    """``[B, T] → [B, n_mels, T // hop]`` log-mel, frames trimmed so that the
+    generator maps it back to exactly ``T`` samples."""
+    mel = log_mel_spectrogram(audio, cfg.mel)
+    return mel[:, : audio.shape[-1] // cfg.mel.hop_length, :].transpose(1, 2)
+
+
+def _as_batch(batch: dict, device: torch.device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _mel_and_real(batch: dict, cfg: TrainConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    real = batch["audio"]
+    if real.dim() == 3:
+        real = real[:, 0, :]
+    mel = batch.get("mel")
+    if mel is None:
+        mel = audio_to_mel(real, cfg)
+    return mel, real[:, : mel.shape[-1] * cfg.mel.hop_length]
+
+
+def make_train_step(
+    cfg: TrainConfig,
+    *,
+    deep_feature_matching: bool = False,
+    remat: bool = False,
+    multi_steps: int = 1,
+    sample_fn: Optional[Callable] = None,
+) -> Callable[[GanTrainState, object], tuple[GanTrainState, dict]]:
+    """``step(state, batch) → (state, metrics)``; ``state`` is updated in
+    place and returned.
+
+    ``batch``: ``{"audio": [B, T]}`` (numpy or tensors), optionally with
+    ``"mel" [B, n_mels, T // hop]`` and, when ``cfg.precompute_embeddings``,
+    ``"speaker"`` and ``"emotion"``.  ``remat`` recomputes the generator's
+    forward in its backward (``torch.utils.checkpoint``).  ``multi_steps >
+    1``: ``batch`` has a leading ``[multi_steps]`` axis, the steps run in
+    turn and the metrics are the window's means.  ``sample_fn``
+    (:func:`hifigan_tpu_torch.train.device_data.make_device_sampler`): the
+    step takes a ``torch.Generator`` in place of a batch, or a seed for one
+    on the model's device, and draws each step's audio with it.  Metrics
+    are 0-dim fp32 tensors on the device (reading one waits for the step)."""
+    w = cfg.loss_weights
+
+    def generate(vocoder, mel, batch):
+        if cfg.precompute_embeddings:
+            out = vocoder(mel, batch["speaker"], batch["emotion"], step=grc_step_reference)
+        else:
+            out = vocoder(mel, step=grc_step_reference)
+        return out["waveform"][:, 0, :]
+
+    def one_step(state: GanTrainState, batch: dict) -> dict:
+        voc, discs = state.vocoder, state.discriminators
+        batch = _as_batch(batch, next(voc.parameters()).device)
+        mel, real = _mel_and_real(batch, cfg)
+        if remat:
+            fake = checkpoint(generate, voc, mel, batch, use_reentrant=False)
+        else:
+            fake = generate(voc, mel, batch)
+
+        # discriminator phase, on the detached fake
+        out_real, out_fake = discs(real), discs(fake.detach())
+        d_loss = discriminator_loss(out_real["mpd_outputs"] + out_real["msd_outputs"],
+                                    out_fake["mpd_outputs"] + out_fake["msd_outputs"], w.adversarial_type)
+        state.disc_opt.zero_grad()
+        d_loss.backward()
+        state.disc_opt.step()
+
+        # generator phase, against the updated discriminators, whose
+        # parameters take no gradient here
+        discs.requires_grad_(False)
+        try:
+            with torch.no_grad():
+                out_real = discs(real)
+            out_fake = discs(fake)
+        finally:
+            discs.requires_grad_(True)
+        adv = generator_adversarial_loss(out_fake["mpd_outputs"] + out_fake["msd_outputs"], w.adversarial_type)
+        key = "features" if deep_feature_matching else "outputs"
+        fm = feature_matching_loss(out_real[f"mpd_{key}"] + out_real[f"msd_{key}"],
+                                   out_fake[f"mpd_{key}"] + out_fake[f"msd_{key}"])
+        mel_loss = mel_l1_loss(audio_to_mel(fake, cfg), mel)
+        total = w.adversarial * adv + w.feature_matching * fm + w.mel * mel_loss
+        metrics = {"adv_loss": adv, "fm_loss": fm, "mel_loss": mel_loss}
+        if w.multi_res_stft > 0:
+            stft_loss = multi_resolution_stft_loss(fake, real)
+            total = total + w.multi_res_stft * stft_loss
+            metrics["stft_loss"] = stft_loss
+        state.gen_opt.zero_grad()
+        total.backward()
+        state.gen_opt.step()
+        state.step += 1
+        return {"generator_loss": total.detach(), "discriminator_loss": d_loss.detach(),
+                **{k: v.detach() for k, v in metrics.items()}}
+
+    def batches(state: GanTrainState, batch) -> list[dict]:
+        """The ``multi_steps`` batches of one call."""
+        if sample_fn is not None:
+            if not isinstance(batch, torch.Generator):
+                batch = torch.Generator(next(state.vocoder.parameters()).device).manual_seed(int(batch))
+            return [{"audio": sample_fn(batch)} for _ in range(multi_steps)]
+        if multi_steps == 1:
+            return [batch]
+        return [{k: v[i] for k, v in batch.items()} for i in range(multi_steps)]
+
+    def step(state: GanTrainState, batch) -> tuple[GanTrainState, dict]:
+        window = [one_step(state, b) for b in batches(state, batch)]
+        if len(window) == 1:
+            return state, window[0]
+        return state, {k: torch.stack([m[k] for m in window]).mean() for k in window[0]}
+
+    return step
+
+
+def make_eval_step(cfg: TrainConfig) -> Callable:
+    """``step(vocoder, batch) → {"waveform": [B, 1, T], "mel_l1"}`` under
+    ``no_grad``, on the vocoder's default path (the GRC-step kernel on the
+    card)."""
+
+    @torch.no_grad()
+    def step(vocoder, batch: dict) -> dict:
+        batch = _as_batch(batch, next(vocoder.parameters()).device)
+        mel, _ = _mel_and_real(batch, cfg)
+        if cfg.precompute_embeddings:
+            out = vocoder(mel, batch["speaker"], batch["emotion"])
+        else:
+            out = vocoder(mel)
+        return {"waveform": out["waveform"], "mel_l1": mel_l1_loss(audio_to_mel(out["waveform"][:, 0, :], cfg), mel)}
+
+    return step

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``hifigan_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, orbax, yaml or the JAX package, and
-the entry points run on the card unless the caller asks for the CPU."""
+the entry points (the generator, the vocoder, the train state and ``cli
+train``) run on the card unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 import hifigan_tpu_torch
+from hifigan_tpu_torch import cli
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "yaml", "hifigan_tpu"}
@@ -39,12 +41,17 @@ def test_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "[]"
 
 
-def test_entry_without_a_card_raises(monkeypatch):
+def test_entry_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hifigan_tpu_torch.entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hifigan_tpu_torch.build_generator()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hifigan_tpu_torch.create_train_state()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--tiny", "--max_steps", "1", "--checkpoint_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
 
 
 def test_entry_on_cpu_runs_the_flagship():
