@@ -42,12 +42,27 @@ Phases, each printing its own line:
      path; one fp32 step on the card against the CPU at 1 x 4096 (TF32 off);
      a checkpoint round trip (save after step 2, restore into a fresh
      trainer, step 3 in both gives the same losses, cuDNN deterministic);
-  8. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
-     calls and 3 train steps: the device's busy share of the window, launches
-     per call, the call's peak device memory and device time per kernel
-     family (attention, the convolutions' backward, FFT and the optimiser
-     each its own), and the device time inside the extractor's and
-     attention's profiler ranges; then the bf16 forward's wall time again.
+  8. S2ST: the streaming speech-to-speech translation path of `cli
+     simulate` (build_s2st_inference(): StreamSpeechConfig(), d 512, 12
+     Conformer and 6 decoder layers, 32,000 tokens, 1,000 units, and
+     CodeVocoderConfig(), HiFi-GAN V1 at 512 hidden, both fp32 at the
+     seeded draw of the JAX package's initialisers), TF32 off: the encoder
+     program at one 64-frame bucket, prefill logits for 16 tokens and the
+     unit vocoder on 16 units against a CPU copy of the same weights within
+     1e-4 of each output's peak, decode_step against prefill on the card;
+     then an S2STAgent session over 5 s of 16 kHz synthetic speech in 320
+     ms segments, which must write before the source ends, commit text,
+     emit units and samples, launch no GRC kernel, and whose KV-cached text
+     continuation must equal the uncached one at its first write; then, in
+     a second session, its wall time and real-time factor, the median wall
+     time of each program at the buckets the session hit, and peak memory;
+  9. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
+     calls, 3 train steps and one S2ST session: the device's busy share of
+     the window, launches per call (and per policy call of the session),
+     the call's peak device memory and device time per kernel family
+     (attention, the convolutions' backward, FFT and the optimiser each its
+     own), and the device time inside the extractor's and attention's
+     profiler ranges; then the bf16 forward's wall time again.
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
@@ -62,13 +77,27 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hifigan_tpu_torch import GeneratorConfig, TrainConfig, build_generator, build_vocoder, create_train_state
+from hifigan_tpu_torch import (
+    GeneratorConfig,
+    TrainConfig,
+    build_generator,
+    build_s2st_inference,
+    build_vocoder,
+    create_train_state,
+)
 from hifigan_tpu_torch.ops.cuda import build, grc_kernel
 from hifigan_tpu_torch.ops.grc_lora import group_stats
+from hifigan_tpu_torch.streaming import incremental as inc
+from hifigan_tpu_torch.streaming import run_streaming_session
+from hifigan_tpu_torch.streaming.agents import S2STAgent
+from hifigan_tpu_torch.streaming.harness import TextSegment
+from hifigan_tpu_torch.streaming.runtime import UNIT_BUCKETS, S2STInference, _bucket
 from hifigan_tpu_torch.train import audio_to_mel, make_eval_step, make_train_step
 from hifigan_tpu_torch.train.checkpoint import CheckpointManager
 from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
@@ -94,16 +123,22 @@ T_AUDIO = FRAMES * HOP
 TRAIN_BATCH, TRAIN_SEGMENT, TRAIN_SAMPLE_RATE, TRAIN_BANK_ROWS = 16, 8192, 16000, 64
 TRAIN_WARMUP, TRAIN_TIMED, TRACED_TRAIN_STEPS = 2, 5, 3
 TRAIN_CHECK_SEGMENT = 4096
+# The S2ST phase: cli simulate's seeded full-width stack in fp32 over 5 s of
+# 16 kHz synthetic speech in 320 ms segments; the card-vs-CPU program checks
+# at one 64-frame source bucket, 16 tokens and 16 units.
+S2ST_AUDIO_SAMPLES, S2ST_SAMPLE_RATE, S2ST_SEGMENT_MS = 80000, 16000, 320
+S2ST_CHECK_FRAMES, S2ST_CHECK_TOKENS, S2ST_CHECK_UNITS = 64, 16, 16
+S2ST_TAIL_RUNS = 5
 
 
-def _time_ms(fn) -> float:
+def _time_ms(fn, runs: int = RUNS) -> float:
     """Median time of one call, from CUDA events around each run: the
     device's time, or the host's where it sets the pace."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -481,6 +516,168 @@ def _check_training(cfg: TrainConfig) -> dict:
             "round_trip_losses": {k: float(v) for k, v in m3.items()}}
 
 
+def _peak_err(card: torch.Tensor, cpu: torch.Tensor) -> tuple[float, float]:
+    """(max |card − cpu|, 1e-4 of the CPU output's peak)."""
+    return float((card.cpu() - cpu).abs().max()), 1e-4 * float(cpu.abs().max())
+
+
+def _encoder_program(model, mel: torch.Tensor) -> dict:
+    """What ``S2STInference.encode_prefix`` computes on the device."""
+    enc = model.encoder(mel, chunked=True)
+    return {"encoder": enc, "source_ctc": model.source_ctc(enc), "target_ctc": model.target_ctc(enc),
+            "t2u": model.t2u_encoder(enc)}
+
+
+def _check_s2st_programs(inf: S2STInference, twin: S2STInference) -> dict:
+    """The S2ST programs on the card against the same weights on the CPU
+    (``twin``), TF32 off, within 1e-4 of each output's peak: the encoder
+    program at one S2ST_CHECK_FRAMES-frame bucket (encoder output, both CTC
+    heads, T2U); ``prefill`` logits for S2ST_CHECK_TOKENS tokens over the
+    CPU's encoder output; ``decode_step`` token by token against the card's
+    own ``prefill``; the unit vocoder on S2ST_CHECK_UNITS units (durations
+    equal, waveform).  Returns each check's (max err, tolerance)."""
+    g = torch.Generator().manual_seed(21)
+    cfg = inf.model.config
+    mel = torch.randn((1, S2ST_CHECK_FRAMES, cfg.input_dim), generator=g)
+    tokens = torch.randint(3, cfg.vocab_size, (1, S2ST_CHECK_TOKENS), generator=g)
+    tokens[0, 0] = inf.cfg.bos_id
+    units = torch.randint(1, inf.code_vocoder.config.unit_vocab_size, (1, S2ST_CHECK_UNITS), generator=g)
+    checks = {}
+    dev = inf.device
+    with torch.no_grad():
+        card, cpu = _encoder_program(inf.model, mel.to(dev)), _encoder_program(twin.model, mel)
+        for name in card:
+            checks[f"encoder program: {name}"] = _peak_err(card[name], cpu[name])
+        enc = cpu["encoder"]
+        spec = inc.DecoderSpec.of(inf.model.text_decoder)
+        prefills = {}
+        for side, model, side_dev in (("card", inf.model, dev), ("cpu", twin.model, twin.device)):
+            decoder = model.text_decoder
+            ckv = inc.cross_kv(decoder, enc.to(side_dev))
+            prefills[side] = inc.prefill(decoder, ckv, tokens.to(side_dev),
+                                         inc.init_cache(spec, 1, S2ST_CHECK_TOKENS, side_dev))[0]
+            if side == "card":
+                cache, steps = inc.init_cache(spec, 1, S2ST_CHECK_TOKENS, dev), []
+                for i in range(S2ST_CHECK_TOKENS):
+                    logits, cache = inc.decode_step(decoder, ckv, cache, tokens[:, i].to(dev))
+                    steps.append(logits)
+                checks["decode_step vs prefill (card)"] = _peak_err(torch.stack(steps, 1), prefills["card"].cpu())
+        checks["prefill logits"] = _peak_err(prefills["card"], prefills["cpu"])
+        wav, dur, n = inf.code_vocoder(units.to(dev))
+        wav_cpu, dur_cpu, n_cpu = twin.code_vocoder(units)
+    if not torch.equal(dur.cpu(), dur_cpu) or int(n) != int(n_cpu):
+        raise AssertionError(f"unit vocoder durations differ, card {dur.tolist()} vs CPU {dur_cpu.tolist()}")
+    checks["unit vocoder waveform"] = _peak_err(wav, wav_cpu)
+    for name, (err, tol) in checks.items():
+        if not err <= tol:
+            raise AssertionError(f"S2ST {name}: card vs CPU max err {err:.3g} > {tol:.3g}")
+    return checks
+
+
+def _s2st_session(inf: S2STInference, audio) -> dict:
+    """One ``S2STAgent`` session as ``cli simulate --agent s2st`` runs it,
+    instrumented: policy calls, the source and unit buckets hit, and, at the
+    first call of the text continuation that gives tokens, the KV-cached
+    continuation against the uncached one (``session=None``) on the card;
+    GRC-kernel launches counted from 0 just before the session."""
+    agent = S2STAgent(inf)
+    seen = {"policy_calls": 0, "source_buckets": set(), "unit_buckets": set(), "cached_vs_uncached": None}
+    policy, encode, cont, synth = agent.policy, inf.encode_prefix, inf.continue_text, inf.synthesize_tail
+
+    def counted_policy(states):
+        seen["policy_calls"] += 1
+        return policy(states)
+
+    def bucketed_encode(mel_frames):
+        seen["source_buckets"].add(_bucket(mel_frames.shape[0], inf.chunk, inf.cfg.source_buckets))
+        return encode(mel_frames)
+
+    def checked_continue(enc, prefix_ids, max_new_tokens=None, session=None):
+        out = cont(enc, prefix_ids, max_new_tokens, session)
+        if out and session is not None and seen["cached_vs_uncached"] is None:
+            seen["cached_vs_uncached"] = (out, cont(enc, prefix_ids, max_new_tokens))
+        return out
+
+    def bucketed_synth(all_units, n_new_units):
+        seen["unit_buckets"].add(_bucket(len(all_units), 8, UNIT_BUCKETS))
+        return synth(all_units, n_new_units)
+
+    agent.policy = counted_policy
+    inf.encode_prefix, inf.continue_text, inf.synthesize_tail = bucketed_encode, checked_continue, bucketed_synth
+    try:
+        _reset_launches()
+        result = run_streaming_session(agent, audio, sample_rate=S2ST_SAMPLE_RATE, segment_size_ms=S2ST_SEGMENT_MS)
+        seen["launches"] = dict(grc_kernel.launches)
+    finally:
+        del inf.encode_prefix, inf.continue_text, inf.synthesize_tail
+    mid = [(t, s) for t, s in zip(result.emission_source_seconds, result.outputs) if t < result.source_seconds
+           and (s.content.strip() if isinstance(s, TextSegment) else len(s.samples))]
+    return {"result": result, "agent": agent, "mid_stream_writes": len(mid), **seen}
+
+
+def _check_s2st_session(run: dict) -> None:
+    """The session must write before the source ends, commit text tokens,
+    emit units and samples (finite, in [-1, 1]), launch no GRC kernel, and
+    its KV-cached continuation must equal the uncached one."""
+    result, agent = run["result"], run["agent"]
+    wav = result.waveform
+    if not run["mid_stream_writes"]:
+        raise AssertionError("the S2ST session wrote nothing before the source ended")
+    if not agent.committed_text_ids or not agent.emitted_units or not len(wav):
+        raise AssertionError(f"the S2ST session committed {len(agent.committed_text_ids)} tokens, emitted "
+                             f"{len(agent.emitted_units)} units and {len(wav)} samples: expected some of each")
+    if not bool(np.isfinite(wav).all()) or float(np.abs(wav).max()) > 1.0:
+        raise AssertionError("the S2ST waveform has non-finite values or values outside [-1, 1]")
+    if any(run["launches"].values()):
+        raise AssertionError(f"the S2ST session launched the GRC kernels {run['launches']}: it runs none")
+    cached, uncached = run["cached_vs_uncached"]
+    if cached != uncached:
+        raise AssertionError(f"KV-cached continuation {cached} != uncached {uncached}")
+
+
+def _time_s2st(inf: S2STInference, audio, run: dict) -> dict:
+    """Wall times, before any trace: the whole session (host clock, ending
+    in a synchronise) and its real-time factor; the median of each program
+    by CUDA events (``_time_ms``): ``encode_prefix`` at each source bucket
+    the session hit, one ``decode_step`` at position 8, ``synthesize_tail``
+    at the smallest and the largest unit bucket it hit (S2ST_TAIL_RUNS runs
+    each: the largest re-vocodes the whole unit prefix); the session's peak
+    device memory above what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    again = run_streaming_session(S2STAgent(inf), audio, sample_rate=S2ST_SAMPLE_RATE,
+                                  segment_size_ms=S2ST_SEGMENT_MS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    first = run["result"]
+    if ([getattr(s, "content", None) for s in again.outputs] != [getattr(s, "content", None) for s in first.outputs]
+            or not np.array_equal(again.waveform, first.waveform)):
+        raise AssertionError("a second S2ST session over the same audio gave other outputs")
+    g = torch.Generator().manual_seed(22)
+    cfg = inf.model.config
+    programs = {}
+    with torch.no_grad():
+        for bucket in sorted(run["source_buckets"]):
+            mel = torch.randn((bucket, cfg.input_dim), generator=g).numpy()
+            programs[f"encode_prefix {bucket} frames"] = _time_ms(lambda: inf.encode_prefix(mel))
+        enc = inf.encode_prefix(mel)["enc"]
+        decoder = inf.model.text_decoder
+        ckv = inc.cross_kv(decoder, enc)
+        cache = inc.init_cache(inf.decoder_spec, 1, inf.cfg.max_target_len, "cuda")
+        token = torch.tensor([5], device="cuda")
+        programs["decode_step"] = _time_ms(lambda: inc.decode_step(decoder, ckv, inc.with_index(cache, 8), token))
+        hit = sorted(run["unit_buckets"])
+        units = torch.randint(1, inf.code_vocoder.config.unit_vocab_size, (hit[-1],), generator=g).tolist()
+        for bucket in sorted({hit[0], hit[-1]}):
+            programs[f"synthesize_tail {bucket} units"] = _time_ms(lambda: inf.synthesize_tail(units[:bucket], 8),
+                                                                   runs=S2ST_TAIL_RUNS)
+    source_s = S2ST_AUDIO_SAMPLES / S2ST_SAMPLE_RATE
+    return {"session_wall_s": wall_s, "rtf": wall_s / source_s, "programs_ms": programs, "peak_mib": peak_mib}
+
+
 def _step_inputs(k, d, dtype, normalised, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -714,9 +911,39 @@ def main() -> int:
           f"{train_audio_s / step_ms * 1e3:.1f} audio-s trained a second; peak device memory "
           f"{train['peak_mib']:.1f} MiB above the state's parameters")
 
-    # 8. traces: where the device time goes, in the forward, the cloning call
-    # and a train step.  Last, after every timing: once the profiler has
-    # traced the card, the host's launches may stay slower.
+    # 8. S2ST: the streaming translation session of cli simulate, checked
+    # and timed before any trace
+    inf = build_s2st_inference()
+    audio = SyntheticSpeechDataset(segment_samples=S2ST_AUDIO_SAMPLES, sample_rate=S2ST_SAMPLE_RATE)[0]
+    twin = S2STInference(copy.deepcopy(inf.model).cpu(), copy.deepcopy(inf.code_vocoder).cpu(), inf.cfg)
+    programs = _check_s2st_programs(inf, twin)
+    del twin
+    run = _s2st_session(inf, audio)
+    _check_s2st_session(run)
+    result, agent = run["result"], run["agent"]
+    n_params = {"s2st": sum(p.numel() for p in inf.model.parameters()),
+                "unit_vocoder": sum(p.numel() for p in inf.code_vocoder.parameters())}
+    print(f"s2st: build_s2st_inference() fp32 (StreamSpeechConfig(), CodeVocoderConfig(); {n_params['s2st']} + "
+          f"{n_params['unit_vocoder']} parameters, the seeded draw of the JAX package's initialisers), TF32 off; "
+          "card vs CPU within 1e-4 of each output's peak: "
+          + "; ".join(f"{k} {e:.3g} (tol {t:.3g})" for k, (e, t) in programs.items())
+          + f"; session over {S2ST_AUDIO_SAMPLES / S2ST_SAMPLE_RATE:g} s of synthetic speech in {S2ST_SEGMENT_MS} ms "
+          f"segments: {len(result.outputs)} writes ({run['mid_stream_writes']} before the source ended), "
+          f"{len(agent.committed_text_ids)} text tokens, {len(agent.emitted_units)} units, {len(result.waveform)} "
+          f"output samples (peak {float(np.abs(result.waveform).max()):.3g}, rms "
+          f"{float(np.sqrt(np.mean(np.square(result.waveform)))):.3g}), Average Lagging {result.average_lagging_ms:.1f} ms (computation-unaware), "
+          f"{run['policy_calls']} policy calls; source buckets {sorted(run['source_buckets'])}, unit buckets "
+          f"{sorted(run['unit_buckets'])}; KV-cached continuation equals uncached at the first write "
+          f"({run['cached_vs_uncached'][0]}); GRC-kernel launches {run['launches']}")
+    s2st_timing = _time_s2st(inf, audio, run)
+    print(f"timing_s2st: session {s2st_timing['session_wall_s']:.3f} s wall for "
+          f"{S2ST_AUDIO_SAMPLES / S2ST_SAMPLE_RATE:g} s of source, real-time factor {s2st_timing['rtf']:.4f} "
+          f"(compute-aware); peak device memory {s2st_timing['peak_mib']:.1f} MiB above the models; median wall ms "
+          "a call: " + json.dumps({k: round(v, 3) for k, v in s2st_timing["programs_ms"].items()}))
+
+    # 9. traces: where the device time goes, in the forward, the cloning call,
+    # a train step and an S2ST session.  Last, after every timing: once the
+    # profiler has traced the card, the host's launches may stay slower.
     with torch.no_grad():
         print("trace: " + json.dumps(_trace(lambda: model(mel, spk, emo))))
         print("trace: " + json.dumps({"call": "cloning", **_trace(lambda: vocoder(mel, reference_mel=ref))}))
@@ -725,6 +952,11 @@ def main() -> int:
     if any(grc_kernel.launches.values()):
         raise AssertionError(f"the traced train steps launched the GRC kernels {grc_kernel.launches}")
     print("trace: " + json.dumps({"call": "train_step", **train_trace}))
+    with torch.no_grad():
+        s2st_trace = _trace(lambda: run_streaming_session(S2STAgent(inf), audio, sample_rate=S2ST_SAMPLE_RATE,
+                                                          segment_size_ms=S2ST_SEGMENT_MS), calls=1)
+    s2st_trace["launches_per_policy_call"] = s2st_trace["launches_per_call"] / run["policy_calls"]
+    print("trace: " + json.dumps({"call": "s2st_session", **s2st_trace}))
     with torch.no_grad():
         after_ms = _time_ms(lambda: model(mel, spk, emo))
     print(f"timing_after_trace: the bf16 forward again, after the profiler: {after_ms:.3f} ms (before it, "

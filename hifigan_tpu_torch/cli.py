@@ -1,15 +1,28 @@
-"""Command-line interface of the port: ``train``.
+"""Command-line interface of the port: ``train`` and ``simulate``.
 
     python -m hifigan_tpu_torch.cli train --max_steps 1000 --checkpoint_dir ckpt [--bf16]
     python -m hifigan_tpu_torch.cli train --tiny --device cpu --max_steps 2 --checkpoint_dir /tmp/t
+    python -m hifigan_tpu_torch.cli simulate --agent s2st [--audio in.wav] [--checkpoint s2st.pt]
+    python -m hifigan_tpu_torch.cli simulate --tiny --device cpu
 
-Counterpart of ``hifigan_tpu/cli.py``'s ``train``: GAN-trains the vocoder
-on the synthetic pseudo-speech dataset, on the card unless ``--device
-cpu``, appending one JSON line of metrics every ``--log_every`` steps to
+Counterpart of ``hifigan_tpu/cli.py``'s ``train`` and ``simulate``, on the
+card unless ``--device cpu``.
+
+``train`` GAN-trains the vocoder on the synthetic pseudo-speech dataset,
+appending one JSON line of metrics every ``--log_every`` steps to
 ``<checkpoint_dir>/metrics.jsonl`` and saving checkpoints there
 (:mod:`hifigan_tpu_torch.train.checkpoint`).  ``--config`` (YAML),
 ``--data_dir``/``--augment``, the formant corpus, tensorboard events and
 the multi-device mesh are not ported yet.
+
+``simulate`` runs one streaming session of an agent over an utterance (a
+WAV file, or a row of the synthetic dataset) and prints JAX's JSON
+summary.  Its models are the seeded full-width pair (``--tiny``: tiny
+widths), or those of ``--checkpoint``, a ``torch.save`` file of
+:func:`hifigan_tpu_torch.weights.save_s2st_checkpoint` (the JAX
+package's orbax checkpoints are carried over with ``load_jax_params``).
+The formant-corpus utterance and the phone detokeniser of JAX's trained
+stack, and ``--decode hmt``, are not ported yet.
 """
 
 from __future__ import annotations
@@ -176,6 +189,60 @@ def _write_training_summary(args, cfg, device, steps, wall_s) -> None:
         json.dump(summary, f, indent=2)
 
 
+def _tiny_s2st_configs():
+    from hifigan_tpu_torch.models.code_vocoder import CodeVocoderConfig
+    from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig
+
+    cfg = StreamSpeechConfig(hidden_dim=32, encoder_layers=1, decoder_layers=1, num_heads=4, vocab_size=100,
+                             unit_vocab_size=50, chunk_size=8, vocoder_hidden=32, vocoder_upsample=(4, 2),
+                             ecapa_channels=32, emo_hidden=32, emo_layers=1)
+    code = CodeVocoderConfig(unit_vocab_size=cfg.unit_vocab_size, embed_dim=16, upsample_factors=(4, 2),
+                             hidden_channels=32, max_duration_per_unit=3)
+    return cfg, code
+
+
+def cmd_simulate(args) -> None:
+    from hifigan_tpu_torch.entry import build_s2st_inference, resolve_device
+    from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig
+    from hifigan_tpu_torch.streaming import agents, run_streaming_session
+    from hifigan_tpu_torch.streaming.features import read_wav
+    from hifigan_tpu_torch.streaming.runtime import S2STInference
+    from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
+    from hifigan_tpu_torch.weights import load_s2st_checkpoint
+
+    device = resolve_device(args.device)
+    if args.checkpoint:
+        model, code_vocoder = load_s2st_checkpoint(args.checkpoint, device)
+        inf = S2STInference(model, code_vocoder)
+        log.info("S2ST stack from %s", args.checkpoint)
+    else:
+        if args.tiny:
+            cfg, code = _tiny_s2st_configs()
+        else:
+            cfg, code = StreamSpeechConfig(), None
+            log.warning("no --checkpoint: simulating with random weights; the output is noise")
+        inf = build_s2st_inference(cfg, code, device=device, seed=0)
+    agent_cls = {"asr": agents.ASRAgent, "s2tt": agents.S2TTAgent, "s2st": agents.S2STAgent,
+                 "waitk-s2tt": agents.WaitkS2TTAgent, "waitk-s2st": agents.WaitkS2STAgent}[args.agent]
+    agent_kw = {"decode": args.decode} if args.agent in ("s2tt", "s2st") and args.decode else {}
+    agent = agent_cls(inf, **agent_kw)
+    if args.audio:
+        audio, sr = read_wav(args.audio)
+    else:
+        audio, sr = SyntheticSpeechDataset(segment_samples=16000)[args.seed], 16000
+    t0 = time.time()
+    result = run_streaming_session(agent, audio, sample_rate=sr, segment_size_ms=args.segment_size)
+    print(json.dumps({
+        "agent": args.agent,
+        "source_seconds": result.source_seconds,
+        "writes": len(result.outputs),
+        "text": result.text[:200],
+        "output_samples": int(len(result.waveform)),
+        "average_lagging_ms": round(result.average_lagging_ms, 1),
+        "wall_s": round(time.time() - t0, 2),
+    }))
+
+
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
     p = argparse.ArgumentParser(prog="hifigan_tpu_torch")
@@ -208,6 +275,17 @@ def main(argv=None) -> None:
     t.add_argument("--stft_weight", type=float, default=0.0, help="multi-resolution STFT loss weight")
     t.add_argument("--adv_type", choices=["lsgan", "hinge"], default="lsgan")
     t.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser("simulate", help="run a streaming agent session")
+    s.add_argument("--agent", choices=["asr", "s2tt", "s2st", "waitk-s2tt", "waitk-s2st"], default="s2st")
+    s.add_argument("--audio", default=None, help="a 16-bit or 32-bit PCM WAV file")
+    s.add_argument("--segment_size", type=int, default=320, help="source segment, ms")
+    s.add_argument("--tiny", action="store_true", help="tiny widths, seeded weights")
+    s.add_argument("--checkpoint", default=None, help="a save_s2st_checkpoint file")
+    s.add_argument("--decode", choices=["greedy", "hmt"], default=None)
+    s.add_argument("--seed", type=int, default=0, help="the synthetic utterance's row when no --audio")
+    s.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    s.set_defaults(fn=cmd_simulate)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,5 +1,5 @@
-"""Entry points: build the flagship generator, the voice-cloning vocoder
-and example inputs.
+"""Entry points: build the flagship generator, the voice-cloning vocoder,
+the streaming S2ST stack and example inputs.
 
 All run on the card unless the caller passes ``device="cpu"``."""
 
@@ -7,8 +7,11 @@ from __future__ import annotations
 
 import torch
 
+from hifigan_tpu_torch.models.code_vocoder import CodeVocoder, CodeVocoderConfig
 from hifigan_tpu_torch.models.generator import Generator, GeneratorConfig
+from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig, StreamSpeechS2ST
 from hifigan_tpu_torch.models.vocoder import ModifiedVocoder
+from hifigan_tpu_torch.streaming.runtime import S2STInference, S2STInferenceConfig
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -50,6 +53,45 @@ def build_vocoder(
     gen = torch.Generator().manual_seed(seed)
     return ModifiedVocoder(config, ecapa_channels, emo_hidden, emo_layers, emo_heads, dtype,
                            gen=gen).to(device).eval()
+
+
+def build_s2st(
+    config: StreamSpeechConfig = StreamSpeechConfig(),
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+) -> StreamSpeechS2ST:
+    """A ``StreamSpeechS2ST`` (with its vocoder and transition head) with
+    weights drawn from ``seed`` (the JAX package's initialisers), fp32, in
+    eval mode, on ``device``."""
+    device = resolve_device(device)
+    return StreamSpeechS2ST(config, gen=torch.Generator().manual_seed(seed)).to(device).eval()
+
+
+def build_code_vocoder(
+    config: CodeVocoderConfig = CodeVocoderConfig(),
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+) -> CodeVocoder:
+    """A ``CodeVocoder`` with weights drawn from ``seed``, fp32, in eval
+    mode, on ``device``."""
+    device = resolve_device(device)
+    return CodeVocoder(config, gen=torch.Generator().manual_seed(seed)).to(device).eval()
+
+
+def build_s2st_inference(
+    config: StreamSpeechConfig = StreamSpeechConfig(),
+    code_config: CodeVocoderConfig | None = None,
+    inference_config: S2STInferenceConfig = S2STInferenceConfig(),
+    device: str | torch.device = "cuda",
+    seed: int = 0,
+) -> S2STInference:
+    """The streaming S2ST runtime over ``build_s2st(config, seed)`` and
+    ``build_code_vocoder(code_config, seed + 1)``, the pair ``cli
+    simulate`` runs without a checkpoint; ``code_config`` defaults to
+    ``CodeVocoderConfig()`` over ``config``'s unit vocabulary."""
+    code_config = code_config or CodeVocoderConfig(unit_vocab_size=config.unit_vocab_size)
+    return S2STInference(build_s2st(config, device, seed), build_code_vocoder(code_config, device, seed + 1),
+                         inference_config)
 
 
 def entry(device: str | torch.device = "cuda"):

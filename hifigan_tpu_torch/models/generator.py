@@ -12,6 +12,9 @@ Counterpart of ``hifigan_tpu/models/generator.py::Generator``:
 Activations run channels-last ``[B, T, C]`` and unfolded.  Parameters are
 fp32 and carry the JAX package's names and layouts (see
 :mod:`hifigan_tpu_torch.weights`); ``dtype`` is the compute dtype.
+
+Also the plain HiFi-GAN V1 generator (``HiFiGANV1Generator``, static
+convs), the unit vocoder's.
 """
 
 from __future__ import annotations
@@ -218,5 +221,77 @@ class Generator(nn.Module):
             blocks = [getattr(self, f"mrf_{i}_grc_{j}").fused() for j in range(len(dils))]
             x = x + grc_chain(x, blocks, groups=cfg.grc_groups, slope=cfg.leaky_slope, step=step)
             x = getattr(self, f"film_{n_up + i + 1}")(x, cond)
+        x = conv_ops.conv1d(x, self.output_kernel.to(dt), self.output_bias, padding=3)
+        return torch.tanh(x.float()).transpose(1, 2)
+
+
+class _ResBlock1(nn.Module):
+    """HiFi-GAN V1 ResBlock: for each dilation d, ``x += conv_k(lrelu(
+    conv_k,d(lrelu(x))))``, static convs with "same" padding."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations: Tuple[int, ...], leaky_slope: float = 0.1,
+                 dtype=torch.float32, *, gen: torch.Generator):
+        super().__init__()
+        c, k = channels, kernel_size
+        self.kernel_size, self.dilations, self.leaky_slope, self.dtype = k, tuple(dilations), leaky_slope, dtype
+        for j in range(len(self.dilations)):
+            setattr(self, f"w1_{j}", _normal(gen, 0.01, k, c, c))
+            setattr(self, f"b1_{j}", _const(0.0, c))
+            setattr(self, f"w2_{j}", _normal(gen, 0.01, k, c, c))
+            setattr(self, f"b2_{j}", _const(0.0, c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, dt = self.kernel_size, self.dtype
+        for j, d in enumerate(self.dilations):
+            h = conv_ops.leaky_relu(x, self.leaky_slope)
+            h = conv_ops.conv1d(h, getattr(self, f"w1_{j}").to(dt), getattr(self, f"b1_{j}"),
+                                padding=(k - 1) * d // 2, dilation=d)
+            h = conv_ops.leaky_relu(h, self.leaky_slope)
+            h = conv_ops.conv1d(h, getattr(self, f"w2_{j}").to(dt), getattr(self, f"b2_{j}"), padding=(k - 1) // 2)
+            x = x + h
+        return x
+
+
+class HiFiGANV1Generator(nn.Module):
+    """The plain (unconditioned) HiFi-GAN V1 generator, static convs
+    throughout: ``mel [B, n_mels, T] → wav [B, 1, T·prod(upsample_factors)]``.
+    Input conv (k 7) → per factor f: LeakyReLU, transposed conv (k 2f,
+    stride f, padding f//2, channels halved), the mean of the ResBlocks →
+    LeakyReLU → output conv (k 7) → tanh.  The unit vocoder's generator.
+    Unfolded: the JAX package's time folding is a TPU lane layout."""
+
+    def __init__(self, input_channels: int = 80, hidden_channels: int = 512,
+                 upsample_factors: Tuple[int, ...] = (8, 8, 2, 2),
+                 resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
+                 resblock_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                 leaky_slope: float = 0.1, dtype=torch.float32, *, gen: torch.Generator):
+        super().__init__()
+        self.upsample_factors, self.resblock_kernel_sizes = tuple(upsample_factors), tuple(resblock_kernel_sizes)
+        self.leaky_slope, self.dtype = leaky_slope, dtype
+        self.input_kernel = _normal(gen, 0.01, 7, input_channels, hidden_channels)
+        self.input_bias = _const(0.0, hidden_channels)
+        ch = hidden_channels
+        for i, f in enumerate(self.upsample_factors):
+            setattr(self, f"up_{i}_kernel", _normal(gen, 0.01, ch, ch // 2, 2 * f))
+            setattr(self, f"up_{i}_bias", _const(0.0, ch // 2))
+            ch //= 2
+            for k, dils in zip(self.resblock_kernel_sizes, resblock_dilations):
+                self.add_module(f"res_{i}_{k}", _ResBlock1(ch, k, dils, leaky_slope, dtype, gen=gen))
+        self.output_kernel = _normal(gen, 0.01, 7, ch, 1)
+        self.output_bias = _const(0.0, 1)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        dt, slope = self.dtype, self.leaky_slope
+        x = conv_ops.conv1d(mel.transpose(1, 2).to(dt), self.input_kernel.to(dt), self.input_bias, padding=3)
+        for i, f in enumerate(self.upsample_factors):
+            x = conv_ops.leaky_relu(x, slope)
+            x = conv_ops.conv_transpose1d(x, getattr(self, f"up_{i}_kernel").to(dt), getattr(self, f"up_{i}_bias"),
+                                          stride=f, padding=f // 2)
+            acc = None
+            for k in self.resblock_kernel_sizes:
+                h = getattr(self, f"res_{i}_{k}")(x)
+                acc = h if acc is None else acc + h
+            x = acc / len(self.resblock_kernel_sizes)
+        x = conv_ops.leaky_relu(x, slope)
         x = conv_ops.conv1d(x, self.output_kernel.to(dt), self.output_bias, padding=3)
         return torch.tanh(x.float()).transpose(1, 2)

@@ -1,6 +1,6 @@
 """Building blocks with flax's semantics: ``Dense``, ``DenseGeneral``,
-``LayerNorm``, sinusoidal positions, multi-head attention and the post-norm
-transformer encoder layer.
+``Embed``, ``LayerNorm``, sinusoidal positions, multi-head attention, the
+post-norm transformer encoder and decoder layers and their masks.
 
 Counterpart of ``hifigan_tpu/models/layers.py`` and of the flax layers it
 uses.  Parameters are fp32 and keep flax's names and layouts: Dense kernels
@@ -53,6 +53,18 @@ class Dense(DenseGeneral):
     def __init__(self, in_features: int, out_features: int, gen: torch.Generator, *,
                  std: float | None = None, dtype=torch.float32):
         super().__init__((in_features,), (out_features,), gen, std=std, dtype=dtype)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: ``embedding [num, features]`` drawn as flax's
+    default, N(0, 1/features); ids index its rows."""
+
+    def __init__(self, num_embeddings: int, features: int, gen: torch.Generator):
+        super().__init__()
+        self.embedding = _normal(gen, features ** -0.5, num_embeddings, features)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids]
 
 
 class LayerNorm(nn.Module):
@@ -132,3 +144,41 @@ class TransformerEncoderLayer(nn.Module):
         x = self.norm1(x + self.mha(x, x, mask)).to(self.dtype)
         f = self.ffn2(torch.relu(self.ffn1(x)))
         return self.norm2(x + f).to(self.dtype)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-norm decoder layer: ``x = LN(x + MHA(x, x))`` under the
+    self-attention mask, ``x = LN(x + MHA(x, memory))`` under the cross
+    mask, ``x = LN(x + FFN(x))``; each LayerNorm's output cast to
+    ``dtype``."""
+
+    def __init__(self, features: int, num_heads: int, ffn_dim: int, dtype=torch.float32, *,
+                 gen: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.self_mha = MultiHeadAttention(features, num_heads, dtype, gen=gen)
+        self.norm1 = LayerNorm(features)
+        self.cross_mha = MultiHeadAttention(features, num_heads, dtype, gen=gen)
+        self.norm2 = LayerNorm(features)
+        self.ffn1 = Dense(features, ffn_dim, gen, dtype=dtype)
+        self.ffn2 = Dense(ffn_dim, features, gen, dtype=dtype)
+        self.norm3 = LayerNorm(features)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, self_mask: torch.Tensor | None = None,
+                cross_mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = self.norm1(x + self.self_mha(x, x, self_mask)).to(self.dtype)
+        x = self.norm2(x + self.cross_mha(x, memory, cross_mask)).to(self.dtype)
+        f = self.ffn2(torch.relu(self.ffn1(x)))
+        return self.norm3(x + f).to(self.dtype)
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """``[1, 1, T, T]`` lower-triangular attention mask (True = attend)."""
+    return torch.ones((length, length), dtype=torch.bool, device=device).tril()[None, None]
+
+
+def chunk_mask(length: int, chunk_size: int, device=None) -> torch.Tensor:
+    """``[1, 1, T, T]`` chunked-attention mask: position i attends to every
+    position in its own chunk and in the chunks before it."""
+    blocks = torch.arange(length, device=device) // chunk_size
+    return (blocks[None, :] <= blocks[:, None])[None, None]

@@ -25,8 +25,10 @@ def conv1d(
     *,
     padding: int | tuple[int, int] = 0,
     dilation: int = 1,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """1-D convolution: ``x [B, T, Cin]``, ``w [k, Cin, Cout]``, ``b [Cout]``.
+    """1-D convolution: ``x [B, T, Cin]``, ``w [k, Cin // groups, Cout]``,
+    ``b [Cout]``.
 
     ``padding`` is symmetric (int) or ``(lo, hi)``.  The bias is cast to
     the activation dtype before the add, as in the JAX package."""
@@ -34,7 +36,7 @@ def conv1d(
     xt = x.transpose(1, 2)
     if lo or hi:
         xt = F.pad(xt, (lo, hi))
-    y = F.conv1d(xt, w.permute(2, 1, 0).to(x.dtype), dilation=dilation).transpose(1, 2)
+    y = F.conv1d(xt, w.permute(2, 1, 0).to(x.dtype), dilation=dilation, groups=groups).transpose(1, 2)
     if b is not None:
         y = y + b.to(y.dtype)
     return y.to(x.dtype)
@@ -65,6 +67,25 @@ def avg_pool1d(x: torch.Tensor, window: int, stride: int | None = None) -> torch
     ``AvgPool1d`` semantics, as the JAX package's)."""
     y = F.avg_pool1d(x.float().transpose(1, 2), window, stride or window)
     return y.transpose(1, 2).to(x.dtype)
+
+
+def conv_transpose1d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    stride: int,
+    padding: int = 0,
+) -> torch.Tensor:
+    """Static-weight transposed conv: ``x [B, T, Cin]``, ``w [Cin, Cout, k]``
+    (torch's layout), ``b [Cout]`` → ``[B, (T-1)·stride − 2·padding + k,
+    Cout]``.  The JAX package's polyphase form of the same function is a
+    TPU layout; here it is one ``F.conv_transpose1d``.  The bias is added in
+    fp32, as there."""
+    y = F.conv_transpose1d(x.transpose(1, 2), w.to(x.dtype), stride=stride, padding=padding).transpose(1, 2)
+    if b is not None:
+        y = y.float() + b.float()
+    return y.to(x.dtype)
 
 
 def dynamic_conv_transpose1d(

@@ -6,17 +6,32 @@ layouts, so a flax path ``params/film_0/proj/kernel`` is the torch name
 res2_kernel_1`` is ``embedding_extractor.ecapa.block_0.res2_kernel_1``)
 and the values copy over unchanged.  One loader serves every module of
 the port: the generator, the encoders, the vocoder facade and the
-discriminators.  :func:`load_jax_train_state` carries a whole JAX train
-state, optimisers included.
+discriminators, the S2ST model and the unit vocoder.
+:func:`load_jax_train_state` carries a whole JAX train state, optimisers
+included.
+
+Also the S2ST stack's configs as the JAX package's trainers write them
+(``streamspeech_config.json`` with its feature revision,
+``code_config.json``), and the port's own S2ST checkpoint: one
+``torch.save`` of both models' configs and state dicts, what ``cli
+simulate --checkpoint`` reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import logging
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 from torch import nn
+
+from hifigan_tpu_torch.models.code_vocoder import CodeVocoder, CodeVocoderConfig
+from hifigan_tpu_torch.models.streamspeech import FEATURE_REV, StreamSpeechConfig, StreamSpeechS2ST
+
+log = logging.getLogger("hifigan_tpu_torch")
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -111,3 +126,61 @@ def load_jax_train_state(state, jax_state):
         opt.count = count
     state.step = int(np.asarray(jax_state.step))
     return state
+
+
+def _streamspeech_config(d: Mapping, where: str = "config") -> StreamSpeechConfig:
+    """A ``StreamSpeechConfig`` from its fields; a ``_feature_rev`` other
+    than :data:`FEATURE_REV` raises, since weights trained under other
+    forward semantics would load and compute something else."""
+    d = dict(d)
+    rev = d.pop("_feature_rev", None)
+    if rev is not None and rev != FEATURE_REV:
+        raise ValueError(f"{where}: checkpoint feature rev {rev} != code rev {FEATURE_REV}: it was trained "
+                         "under other forward semantics")
+    if rev is None:
+        log.warning("%s has no _feature_rev; assuming the current forward semantics", where)
+    d["vocoder_upsample"] = tuple(d["vocoder_upsample"])
+    return StreamSpeechConfig(**d)
+
+
+def load_streamspeech_config(path: str) -> StreamSpeechConfig:
+    """Read a ``streamspeech_config.json`` (the JAX S2ST trainer's), with the
+    feature-revision guard of :func:`_streamspeech_config`."""
+    with open(path) as f:
+        return _streamspeech_config(json.load(f), path)
+
+
+def load_code_config(path: str) -> CodeVocoderConfig:
+    """Read a ``code_config.json`` (the JAX unit-vocoder trainer's)."""
+    with open(path) as f:
+        d = json.load(f)
+    d["upsample_factors"] = tuple(d["upsample_factors"])
+    return CodeVocoderConfig(**d)
+
+
+def save_s2st_checkpoint(path: str, model: StreamSpeechS2ST, code_vocoder: CodeVocoder) -> None:
+    """Write both models' configs and parameters to one ``torch.save`` file."""
+    torch.save({
+        "streamspeech_config": {**dataclasses.asdict(model.config), "_feature_rev": FEATURE_REV},
+        "code_config": dataclasses.asdict(code_vocoder.config),
+        "s2st": model.state_dict(),
+        "code_vocoder": code_vocoder.state_dict(),
+    }, path)
+
+
+def load_s2st_checkpoint(path: str, device: str | torch.device) -> tuple[StreamSpeechS2ST, CodeVocoder]:
+    """The two models of a :func:`save_s2st_checkpoint` file, fp32, in eval
+    mode, on ``device``.  The S2ST model has the vocoder and the transition
+    head when the file has their parameters."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    cfg = _streamspeech_config(ckpt["streamspeech_config"], path)
+    code_cfg = ckpt["code_config"]
+    code_cfg = CodeVocoderConfig(**{**code_cfg, "upsample_factors": tuple(code_cfg["upsample_factors"])})
+    keys = ckpt["s2st"].keys()
+    gen = torch.Generator().manual_seed(0)
+    model = StreamSpeechS2ST(cfg, gen=gen, with_vocoder=any(k.startswith("vocoder.") for k in keys),
+                             with_transition_head=any(k.startswith("transition_head.") for k in keys))
+    model.load_state_dict(ckpt["s2st"])
+    code_vocoder = CodeVocoder(code_cfg, gen=gen)
+    code_vocoder.load_state_dict(ckpt["code_vocoder"])
+    return model.to(device).eval(), code_vocoder.to(device).eval()

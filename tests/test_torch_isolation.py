@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``hifigan_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, orbax, yaml or the JAX package, and
-the entry points (the generator, the vocoder, the train state and ``cli
-train``) run on the card unless the caller asks for the CPU."""
+the entry points (the generator, the vocoder, the train state, ``cli
+train``, the S2ST model, the unit vocoder, the S2ST runtime and ``cli
+simulate``) run on the card unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -52,6 +53,12 @@ def test_entry_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", "--tiny", "--max_steps", "1", "--checkpoint_dir", str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()
+    for build in (hifigan_tpu_torch.build_s2st, hifigan_tpu_torch.build_code_vocoder,
+                  hifigan_tpu_torch.build_s2st_inference):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["simulate", "--tiny"])
 
 
 def test_entry_on_cpu_runs_the_flagship():
