@@ -56,13 +56,28 @@ Phases, each printing its own line:
      continuation must equal the uncached one at its first write; then, in
      a second session, its wall time and real-time factor, the median wall
      time of each program at the buckets the session hit, and peak memory;
-  9. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
-     calls, 3 train steps and one S2ST session: the device's busy share of
-     the window, launches per call (and per policy call of the session),
-     the call's peak device memory and device time per kernel family
-     (attention, the convolutions' backward, FFT and the optimiser each its
-     own), and the device time inside the extractor's and attention's
-     profiler ranges; then the bf16 forward's wall time again.
+  9. evaluation: `cli eval` and `cli eval-clone` through cli.main, fp32,
+     TF32 off, over files written to a temporary directory (a train-state
+     checkpoint of create_train_state(TrainConfig()) with the generator
+     redrawn, the judge encoders at EncoderTrainConfig() widths and a CTC
+     judge at runs/asr_judge's config, both seeded): cli eval over 4
+     held-out formant clips padded to one length, 9 grc_step_f32 launches a
+     synthesis call, the report's keys JAX's, the judge's gate and ASR-BLEU
+     status consistent, sample 0's metrics on the card against a CPU copy,
+     the synthesis kernel path against the plain path; cli eval-clone at 4
+     speakers x 2 contents (24 transfer pairs, 24 ablation calls), 9
+     launches a cloning call, JAX's keys, the kernel path against the plain
+     path at one pair and a zero reference moving the waveform; the
+     synthesis's and the cloning call's median time, the evaluator's
+     processing time and audio-seconds a second, both commands' wall time;
+ 10. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
+     calls, 3 train steps, one S2ST session and 10 of eval-clone's cloning
+     calls: the device's busy share of the window, launches per call (and
+     per policy call of the session), the call's peak device memory and
+     device time per kernel family (attention, the convolutions' backward,
+     FFT and the optimiser each its own), and the device time inside the
+     extractor's and attention's profiler ranges; then the bf16 forward's
+     wall time again.
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
@@ -70,7 +85,9 @@ without a CUDA card it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import statistics
@@ -91,6 +108,10 @@ from hifigan_tpu_torch import (
     build_vocoder,
     create_train_state,
 )
+from hifigan_tpu_torch import cli
+from hifigan_tpu_torch.eval.cloning_eval import EVAL_CONTENT_BASE, EVAL_REF_BASE, _pad
+from hifigan_tpu_torch.eval.evaluator import StreamEvaluator
+from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig, StreamSpeechS2ST
 from hifigan_tpu_torch.ops.cuda import build, grc_kernel
 from hifigan_tpu_torch.ops.grc_lora import group_stats
 from hifigan_tpu_torch.streaming import incremental as inc
@@ -101,7 +122,10 @@ from hifigan_tpu_torch.streaming.runtime import UNIT_BUCKETS, S2STInference, _bu
 from hifigan_tpu_torch.train import audio_to_mel, make_eval_step, make_train_step
 from hifigan_tpu_torch.train.checkpoint import CheckpointManager
 from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
+from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
 from hifigan_tpu_torch.train.device_data import build_audio_bank, make_device_sampler
+from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, build_models
+from hifigan_tpu_torch.weights import load_encoder_checkpoint, save_ctc_judge, save_encoder_checkpoint
 
 BATCH, FRAMES, SAMPLE_RATE, HOP = 8, 256, 22050, 256
 REF_FRAMES = 128  # the cloning phase's reference clips
@@ -129,6 +153,27 @@ TRAIN_CHECK_SEGMENT = 4096
 S2ST_AUDIO_SAMPLES, S2ST_SAMPLE_RATE, S2ST_SEGMENT_MS = 80000, 16000, 320
 S2ST_CHECK_FRAMES, S2ST_CHECK_TOKENS, S2ST_CHECK_UNITS = 64, 16, 16
 S2ST_TAIL_RUNS = 5
+# The evaluation phase: cli eval over 4 held-out formant clips and cli
+# eval-clone's grid at 4 speakers x 2 contents (24 transfer pairs and 24
+# ablation calls), fp32 at TrainConfig() widths.  The CTC judge is seeded at
+# the config of the JAX package's runs/asr_judge/streamspeech_config.json.
+EVAL_SAMPLES, EVAL_CLONE_SPEAKERS, EVAL_CLONE_CONTENTS = 4, 4, 2
+JUDGE_CONFIG = dict(input_dim=80, hidden_dim=256, encoder_layers=6, decoder_layers=3, num_heads=4, vocab_size=32,
+                    unit_vocab_size=32, chunk_size=8, speaker_dim=192, emotion_dim=256, vocoder_hidden=128,
+                    vocoder_upsample=(8, 8, 2, 2), ecapa_channels=64, emo_hidden=64, emo_layers=1)
+# The keys of the JAX package's reports (hifigan_tpu/cli.py cmd_eval with
+# --dataset formant, and cmd_eval_clone without --full_pairs).
+EVAL_REPORT_KEYS = {"num_samples", "raw_results", "statistics", "benchmarks", "dataset", "checkpoint_dir",
+                    "restored_step", "sim_encoders", "asr_judge_gate"}
+EVAL_RESULT_KEYS = {"speaker_similarity", "emotion_similarity", "mel_l1", "mcd", "processing_time", "rtf"}
+EVAL_CLONE_REPORT_KEYS = {"n_transfer_pairs", "transfer_verified_rate", "transfer_closer_to_target_rate",
+                          "transfer_sim_target_mean", "transfer_sim_source_mean", "mel_l1_to_target_rendition_mean",
+                          "mel_l1_to_source_rendition_mean", "ablation", "encoder_separation", "checkpoint_dir",
+                          "restored_step", "encoder_step"}
+# The eval sample's metrics on the card against the CPU (TF32 off; the card
+# runs the fp32 kernel, the CPU the plain chain): SIM is a cosine of unit
+# embeddings; mel-L1 and MCD are relative to their value.
+EVAL_SIM_TOL, EVAL_REL_TOL = 1e-4, 1e-3
 
 
 def _time_ms(fn, runs: int = RUNS) -> float:
@@ -678,6 +723,179 @@ def _time_s2st(inf: S2STInference, audio, run: dict) -> dict:
     return {"session_wall_s": wall_s, "rtf": wall_s / source_s, "programs_ms": programs, "peak_mib": peak_mib}
 
 
+def _n_steps(cfg: TrainConfig) -> int:
+    """GRC steps a synthesis call: 9 at ``GeneratorConfig()``."""
+    return sum(len(d) for d in cfg.generator.resblock_dilations)
+
+
+def _write_eval_files(directory: str) -> dict:
+    """The files ``cli eval`` and ``cli eval-clone`` read, in ``directory``:
+    a train-state checkpoint of ``create_train_state(TrainConfig())`` in
+    fp32 (the generator redrawn by ``_redraw_parameters``: at the JAX
+    initialisers' draw its output is nearly silent and its log-mel sits on
+    the floor, where no metric could see the synthesis; the extractor keeps
+    that draw, as in phase 6), the judge encoders at ``EncoderTrainConfig()``
+    widths and the CTC judge at JUDGE_CONFIG, both seeded."""
+    state = create_train_state(TrainConfig(), torch.float32, "cuda", seed=0)
+    _redraw_parameters(state.vocoder.generator, seed=8)
+    paths = {"ckpt": f"{directory}/ckpt", "encoders": f"{directory}/encoders.pt", "judge": f"{directory}/judge.pt"}
+    if not CheckpointManager(paths["ckpt"]).save(state, force=True):
+        raise AssertionError("the evaluation's train-state checkpoint was not written")
+    ecfg = EncoderTrainConfig()
+    save_encoder_checkpoint(paths["encoders"], ecfg, *build_models(ecfg, gen=torch.Generator().manual_seed(9)))
+    judge = StreamSpeechS2ST(StreamSpeechConfig(**JUDGE_CONFIG), gen=torch.Generator().manual_seed(10),
+                             with_vocoder=False)
+    save_ctc_judge(paths["judge"], judge)
+    return {"vocoder": state.vocoder.eval(), **paths}
+
+
+def _eval_samples(cfg: TrainConfig, device: str) -> list:
+    """``cli eval``'s formant samples: the clips, padded to one shared
+    length, as mels on ``device`` with their valid frames."""
+    corpus = FormantSpeechCorpus(n_speakers=8)
+    clips = [corpus.utterance(i % 8, 10_000 + i) for i in range(EVAL_SAMPLES)]
+    seg = -(-max(len(c) for c in clips) // 1024) * 1024
+    samples = []
+    for clip in clips:
+        audio = np.zeros(seg, np.float32)
+        audio[: len(clip)] = clip
+        with torch.no_grad():
+            mel = audio_to_mel(torch.from_numpy(audio[None]).to(device), cfg)
+        samples.append({"mel": mel, "valid_frames": -(-len(clip) // cfg.mel.hop_length)})
+    return samples
+
+
+def _check_eval(files: dict, directory: str) -> dict:
+    """``cli eval`` on the card, through ``cli.main`` as a user runs it,
+    over EVAL_SAMPLES held-out formant clips with the files of
+    ``_write_eval_files``.
+
+    - Launches, counted from 0 just before the command: 9 ``grc_step_f32``
+      a synthesis call (EVAL_SAMPLES calls and one untimed warm-up), no
+      ``grc_step_bf16``.
+    - The report: JAX's keys, each sample's metric keys, finite metrics,
+      trained encoders; the judge's gate report, and ASR-BLEU SKIPPED
+      exactly when no judge passed it.
+    - Sample 0's metrics on the card against a CPU copy of the same files
+      (``StreamEvaluator`` over the CPU's mel of the same clip): SIM within
+      EVAL_SIM_TOL, mel-L1 and MCD within EVAL_REL_TOL of their value.
+    - The synthesis on the kernel path against the plain path on the card,
+      at sample 0: 1e-4 (the fp32 generator phase's tolerance)."""
+    out = f"{directory}/eval.json"
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its summary line; the report is the file
+        cli.main(["eval", "--device", "cuda", "--checkpoint_dir", files["ckpt"], "--encoders", files["encoders"],
+                  "--asr", files["judge"], "--samples", str(EVAL_SAMPLES), "--output", out])
+    wall_s = time.perf_counter() - t0
+    launches = dict(grc_kernel.launches)
+    expect = {"grc_step_f32": _n_steps(TrainConfig()) * (EVAL_SAMPLES + 1), "grc_step_bf16": 0}
+    if launches != expect:
+        raise AssertionError(f"cli eval launched the kernels {launches} times, expected {expect}: 9 grc_step_f32 "
+                             f"a synthesis call, {EVAL_SAMPLES} calls and one warm-up")
+    with open(out) as f:
+        report = json.load(f)
+    if set(report) != EVAL_REPORT_KEYS or any(set(r) != EVAL_RESULT_KEYS for r in report["raw_results"]):
+        raise AssertionError(f"the eval report's keys {sorted(report)} / {[sorted(r) for r in report['raw_results']]} "
+                             f"are not JAX's {sorted(EVAL_REPORT_KEYS)} / {sorted(EVAL_RESULT_KEYS)}")
+    if report["num_samples"] != EVAL_SAMPLES or report["sim_encoders"] != "trained":
+        raise AssertionError(f"the eval report has {report['num_samples']} samples, SIM encoders "
+                             f"{report['sim_encoders']!r}")
+    if not all(math.isfinite(v) for r in report["raw_results"] for v in r.values()):
+        raise AssertionError(f"non-finite eval metrics: {report['raw_results']}")
+    gate = report["asr_judge_gate"]
+    candidate = gate["candidates"][0] if len(gate["candidates"]) == 1 else {}
+    if "ground_truth_cer" not in candidate or candidate["dir"] != files["judge"]:
+        raise AssertionError(f"the judge gate did not score the judge: {gate}")
+    status = report["benchmarks"]["asr_bleu"]["status"]
+    if (status == "SKIPPED") != (gate["selected"] is None):
+        raise AssertionError(f"ASR-BLEU is {status} with the gate's selection {gate['selected']}")
+
+    cfg = TrainConfig()
+    cpu_state = CheckpointManager(files["ckpt"]).restore(create_train_state(cfg, torch.float32, "cpu", seed=0))
+    cpu_vocoder = cpu_state.vocoder.eval()
+    _, ecapa, emo, _ = load_encoder_checkpoint(files["encoders"], "cpu")
+    no_grad = torch.no_grad()
+    evaluator = StreamEvaluator(no_grad(lambda m: cpu_vocoder(m)["waveform"]), no_grad(lambda m: ecapa(m)),
+                                no_grad(lambda m: emo(m)), no_grad(lambda w: audio_to_mel(w, cfg)))
+    sample = _eval_samples(cfg, "cpu")[0]
+    cpu = evaluator.evaluate_single_sample(sample["mel"], valid_frames=sample["valid_frames"])
+    card = report["raw_results"][0]
+    errs = {k: abs(card[k] - cpu[k]) for k in ("speaker_similarity", "emotion_similarity", "mel_l1", "mcd")}
+    tols = {k: EVAL_SIM_TOL if "similarity" in k else EVAL_REL_TOL * abs(cpu[k]) for k in errs}
+    if any(errs[k] > tols[k] for k in errs):
+        raise AssertionError(f"eval sample 0 on the card {card} differs from the CPU's {cpu}: errors {errs}, "
+                             f"tolerances {tols}")
+    del cpu_state, cpu_vocoder
+
+    vocoder = files["vocoder"]
+    mel = _eval_samples(cfg, "cuda")[0]["mel"]
+    with torch.no_grad():
+        wav = vocoder(mel)["waveform"]
+        plain = vocoder(mel, step=grc_kernel.grc_step_reference)["waveform"]
+    kernel_err = float((wav - plain).abs().max())
+    if kernel_err > 1e-4 or not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"the eval synthesis on the kernel path differs from the plain path by {kernel_err:.3g}")
+    return {"report": report, "launches": launches, "wall_s": wall_s, "errs": errs, "tols": tols,
+            "kernel_err": kernel_err, "mel": mel, "cer": candidate["ground_truth_cer"], "status": status}
+
+
+def _check_eval_clone(files: dict, directory: str) -> dict:
+    """``cli eval-clone`` on the card, through ``cli.main``, at
+    EVAL_CLONE_SPEAKERS x EVAL_CLONE_CONTENTS.
+
+    - Launches, counted from 0 just before the command: 9 ``grc_step_f32``
+      for each of the grid's cloning calls (S·(S−1)·C transfer pairs and
+      3·S·C ablation calls), no ``grc_step_bf16``.
+    - The report: JAX's keys, S·(S−1)·C transfer pairs, finite numbers.
+    - At one pair (speaker 0's held-out content cloned from speaker 1's
+      reference, the grid's shapes): the cloning call on the kernel path
+      against the plain path, 1e-4; a zero reference in place of the right
+      one moves the waveform by more than that tolerance (the conditioning
+      path is live)."""
+    out = f"{directory}/eval_clone.json"
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its summary; the report is the file
+        cli.main(["eval-clone", "--device", "cuda", "--checkpoint_dir", files["ckpt"], "--encoders",
+                  files["encoders"], "--n_speakers", str(EVAL_CLONE_SPEAKERS), "--n_contents",
+                  str(EVAL_CLONE_CONTENTS), "--output", out])
+    wall_s = time.perf_counter() - t0
+    launches = dict(grc_kernel.launches)
+    s, c = EVAL_CLONE_SPEAKERS, EVAL_CLONE_CONTENTS
+    calls = s * (s - 1) * c + 3 * s * c
+    if launches != {"grc_step_f32": _n_steps(TrainConfig()) * calls, "grc_step_bf16": 0}:
+        raise AssertionError(f"cli eval-clone launched the kernels {launches} times, expected 9 grc_step_f32 for "
+                             f"each of its {calls} cloning calls")
+    with open(out) as f:
+        report = json.load(f)
+    if set(report) != EVAL_CLONE_REPORT_KEYS or report["n_transfer_pairs"] != s * (s - 1) * c:
+        raise AssertionError(f"the eval-clone report's keys {sorted(report)} are not JAX's "
+                             f"{sorted(EVAL_CLONE_REPORT_KEYS)}, or its pairs {report.get('n_transfer_pairs')} not "
+                             f"{s * (s - 1) * c}")
+    numbers = [v for v in report.values() if isinstance(v, float)] + list(report["ablation"].values())
+    if not all(math.isfinite(v) for v in numbers):
+        raise AssertionError(f"non-finite eval-clone numbers: {report}")
+
+    cfg, corpus, vocoder = TrainConfig(), FormantSpeechCorpus(n_speakers=32), files["vocoder"]
+    content = corpus.utterance(0, 0, content=EVAL_CONTENT_BASE)
+    ref = corpus.utterance(1, 0, content=EVAL_REF_BASE + 1, arousal=corpus.content_arousal(EVAL_CONTENT_BASE))
+    with torch.no_grad():
+        content_mel = audio_to_mel(_pad(content, 32_768).cuda(), cfg)
+        ref_mel = audio_to_mel(_pad(ref, 16_384).cuda(), cfg)
+        wav = vocoder(content_mel, reference_mel=ref_mel)["waveform"]
+        plain = vocoder(content_mel, reference_mel=ref_mel, step=grc_kernel.grc_step_reference)["waveform"]
+        zero = vocoder(content_mel, reference_mel=torch.zeros_like(ref_mel))["waveform"]
+    kernel_err, moved = float((wav - plain).abs().max()), float((zero - wav).abs().max())
+    if kernel_err > 1e-4:
+        raise AssertionError(f"the eval-clone call on the kernel path differs from the plain path by {kernel_err:.3g}")
+    if moved <= 1e-4:
+        raise AssertionError(f"a zero reference moves the cloned waveform by {moved:.3g}, within the tolerance 1e-4: "
+                             "the conditioning path is not live")
+    return {"report": report, "launches": launches, "calls": calls, "wall_s": wall_s, "kernel_err": kernel_err,
+            "moved": moved, "content_mel": content_mel, "ref_mel": ref_mel}
+
+
 def _step_inputs(k, d, dtype, normalised, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -941,7 +1159,41 @@ def main() -> int:
           f"(compute-aware); peak device memory {s2st_timing['peak_mib']:.1f} MiB above the models; median wall ms "
           "a call: " + json.dumps({k: round(v, 3) for k, v in s2st_timing["programs_ms"].items()}))
 
-    # 9. traces: where the device time goes, in the forward, the cloning call,
+    # 9. evaluation: cli eval and cli eval-clone through cli.main, fp32 (TF32
+    # off), checked and timed before any trace
+    with tempfile.TemporaryDirectory() as directory:
+        files = _write_eval_files(directory)
+        ev = _check_eval(files, directory)
+        clone_ev = _check_eval_clone(files, directory)
+    eval_vocoder = files["vocoder"]
+    stats = ev["report"]["statistics"]
+    print(f"eval: cli eval fp32 (TrainConfig(), the generator redrawn; EncoderTrainConfig() encoders and the "
+          f"JUDGE_CONFIG CTC judge seeded, through their files) over {EVAL_SAMPLES} held-out formant clips padded to "
+          f"{ev['mel'].shape[-1]} frames: kernel launches {ev['launches']} (9 a synthesis call, {EVAL_SAMPLES} + 1 "
+          f"warm-up); report keys equal JAX's; judge ground-truth CER {ev['cer']}, ASR-BLEU {ev['status']}; "
+          f"sample 0 card vs CPU errors {json.dumps({k: float(f'{v:.3g}') for k, v in ev['errs'].items()})} "
+          f"(tolerances {json.dumps({k: float(f'{v:.3g}') for k, v in ev['tols'].items()})}); kernel vs plain path "
+          f"max err {ev['kernel_err']:.3g} (tol 1e-4); means "
+          + json.dumps({k: v["mean"] for k, v in stats.items()}))
+    print(f"eval_clone: cli eval-clone fp32 at {EVAL_CLONE_SPEAKERS} speakers x {EVAL_CLONE_CONTENTS} contents: "
+          f"{clone_ev['report']['n_transfer_pairs']} transfer pairs and {clone_ev['calls']} cloning calls, kernel "
+          f"launches {clone_ev['launches']} (9 a call); report keys equal JAX's; kernel vs plain path at one pair "
+          f"max err {clone_ev['kernel_err']:.3g} (tol 1e-4); a zero reference moves the waveform by "
+          f"{clone_ev['moved']:.3g}; transfer and ablation "
+          + json.dumps({k: v for k, v in clone_ev["report"].items() if not isinstance(v, str)}))
+    with torch.no_grad():
+        synth_ms = _time_ms(lambda: eval_vocoder(ev["mel"]))
+        clone_call_ms = _time_ms(lambda: eval_vocoder(clone_ev["content_mel"], reference_mel=clone_ev["ref_mel"]))
+    proc = [r["processing_time"] for r in ev["report"]["raw_results"]]
+    rtf = [r["rtf"] for r in ev["report"]["raw_results"]]
+    print(f"timing_eval: {smi.stdout.strip().splitlines()[0]}; synthesis of one eval sample (1 x "
+          f"{ev['mel'].shape[-1]} frames, fp32) median {synth_ms:.3f} ms; the evaluator's processing_time median "
+          f"{statistics.median(proc) * 1e3:.3f} ms ({json.dumps([round(p * 1e3, 3) for p in proc])} ms), rtf median "
+          f"{statistics.median(rtf):.1f} audio-s/s; cli eval {ev['wall_s']:.2f} s wall; the eval-clone cloning call "
+          f"(1 x {clone_ev['content_mel'].shape[-1]} content and {clone_ev['ref_mel'].shape[-1]} reference frames) "
+          f"median {clone_call_ms:.3f} ms; cli eval-clone grid {clone_ev['wall_s']:.2f} s wall")
+
+    # 10. traces: where the device time goes, in the forward, the cloning call,
     # a train step and an S2ST session.  Last, after every timing: once the
     # profiler has traced the card, the host's launches may stay slower.
     with torch.no_grad():
@@ -957,6 +1209,9 @@ def main() -> int:
                                                           segment_size_ms=S2ST_SEGMENT_MS), calls=1)
     s2st_trace["launches_per_policy_call"] = s2st_trace["launches_per_call"] / run["policy_calls"]
     print("trace: " + json.dumps({"call": "s2st_session", **s2st_trace}))
+    with torch.no_grad():
+        print("trace: " + json.dumps({"call": "eval_clone_call", **_trace(
+            lambda: eval_vocoder(clone_ev["content_mel"], reference_mel=clone_ev["ref_mel"]))}))
     with torch.no_grad():
         after_ms = _time_ms(lambda: model(mel, spk, emo))
     print(f"timing_after_trace: the bf16 forward again, after the profiler: {after_ms:.3f} ms (before it, "

@@ -10,8 +10,12 @@ hifigan_tpu_torch.cli train``) trains it against the MPD/MSD
 discriminators.  The streaming speech-to-speech translation path
 (``build_s2st_inference``, ``hifigan_tpu_torch.streaming``, ``python -m
 hifigan_tpu_torch.cli simulate``) runs StreamSpeech and the CodeHiFiGAN
-unit vocoder over an utterance fed in segments.  Importing the package
-imports torch and numpy only; kernels are built at first use."""
+unit vocoder over an utterance fed in segments.  The evaluation path
+(``hifigan_tpu_torch.eval``, ``python -m hifigan_tpu_torch.cli eval`` and
+``eval-clone``) scores the vocoder on the formant corpus: speaker and
+emotion similarity, mel-L1, MCD, ASR-BLEU with a CTC judge, and the
+voice-cloning transfer grid.  Importing the package imports torch and
+numpy only (the corpus adds scipy); kernels are built at first use."""
 
 from hifigan_tpu_torch.entry import (
     build_code_vocoder,

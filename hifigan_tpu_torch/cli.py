@@ -1,12 +1,16 @@
-"""Command-line interface of the port: ``train`` and ``simulate``.
+"""Command-line interface of the port: ``train``, ``eval``, ``eval-clone``
+and ``simulate``.
 
     python -m hifigan_tpu_torch.cli train --max_steps 1000 --checkpoint_dir ckpt [--bf16]
     python -m hifigan_tpu_torch.cli train --tiny --device cpu --max_steps 2 --checkpoint_dir /tmp/t
+    python -m hifigan_tpu_torch.cli eval [--checkpoint_dir ckpt] [--encoders enc.pt] [--asr judge.pt]
+    python -m hifigan_tpu_torch.cli eval --tiny --device cpu
+    python -m hifigan_tpu_torch.cli eval-clone --checkpoint_dir ckpt --encoders enc.pt
     python -m hifigan_tpu_torch.cli simulate --agent s2st [--audio in.wav] [--checkpoint s2st.pt]
     python -m hifigan_tpu_torch.cli simulate --tiny --device cpu
 
-Counterpart of ``hifigan_tpu/cli.py``'s ``train`` and ``simulate``, on the
-card unless ``--device cpu``.
+Counterpart of ``hifigan_tpu/cli.py``'s ``train``, ``eval``,
+``eval-clone`` and ``simulate``, on the card unless ``--device cpu``.
 
 ``train`` GAN-trains the vocoder on the synthetic pseudo-speech dataset,
 appending one JSON line of metrics every ``--log_every`` steps to
@@ -14,6 +18,18 @@ appending one JSON line of metrics every ``--log_every`` steps to
 (:mod:`hifigan_tpu_torch.train.checkpoint`).  ``--config`` (YAML),
 ``--data_dir``/``--augment``, the formant corpus, tensorboard events and
 the multi-device mesh are not ported yet.
+
+``eval`` synthesises held-out formant-corpus utterances (or synthetic
+rows) with the fp32 cloning vocoder at ``TrainConfig()`` widths and writes
+JAX's report: speaker and emotion SIM with the judge encoders, mel-L1, MCD,
+processing time and audio-seconds a second, and ASR-BLEU when a CTC judge
+passes its competence gate (else SKIPPED).  ``eval-clone`` runs the
+encoder separation, the cross-speaker transfer grid and the conditioning
+ablation.  Where JAX reads orbax run directories they read the port's
+files: ``--checkpoint_dir`` the :mod:`hifigan_tpu_torch.train.checkpoint`
+files (``eval``: the seeded draw when there are none), ``--encoders`` a
+``weights.save_encoder_checkpoint`` file and ``--asr`` a
+``weights.save_ctc_judge`` file.
 
 ``simulate`` runs one streaming session of an agent over an utterance (a
 WAV file, or a row of the synthetic dataset) and prints JAX's JSON
@@ -189,6 +205,202 @@ def _write_training_summary(args, cfg, device, steps, wall_s) -> None:
         json.dump(summary, f, indent=2)
 
 
+# where the port's files live beside the JAX package's trained runs, best first
+FLAGSHIP_RUNS = ("runs/flagship2", "runs/flagship")
+ENCODER_FILES = ("runs/encoders7/encoders.pt", "runs/encoders/encoders.pt")
+JUDGE_FILES = ("runs/asr_judge/ctc_judge.pt", "runs/s2st3/ctc_judge.pt", "runs/s2st2/ctc_judge.pt",
+               "runs/s2st/ctc_judge.pt")
+
+
+def _first(*candidates, exists=os.path.isdir):
+    """The first of ``candidates`` that exists, else None."""
+    return next((c for c in candidates if c and exists(c)), None)
+
+
+def _eval_config(tiny: bool):
+    """``TrainConfig()``; with ``tiny``, JAX's ``cli eval --tiny`` widths."""
+    from hifigan_tpu_torch.models.generator import GeneratorConfig
+    from hifigan_tpu_torch.ops.stft import MelConfig
+    from hifigan_tpu_torch.train import TrainConfig
+
+    cfg = TrainConfig()
+    if tiny:
+        cfg = replace(
+            cfg,
+            generator=GeneratorConfig(input_channels=16, hidden_channels=32, upsample_factors=(4, 2),
+                                      resblock_kernel_sizes=(3,), resblock_dilations=((1, 3),), lora_rank=4),
+            mel=MelConfig(n_fft=32, hop_length=8, win_length=32, n_mels=16),
+            ecapa_channels=32, emo_hidden=32, emo_layers=1, emo_heads=4,
+        )
+    return cfg
+
+
+def cmd_eval(args) -> None:
+    from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.eval.asr_bleu import write_wav
+    from hifigan_tpu_torch.eval.evaluator import StreamEvaluator, aggregate_statistics, create_evaluation_report
+    from hifigan_tpu_torch.models.embeddings import EcapaTdnn, Emotion2Vec
+    from hifigan_tpu_torch.train import audio_to_mel, create_train_state
+    from hifigan_tpu_torch.train.checkpoint import CheckpointManager
+    from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
+    from hifigan_tpu_torch.weights import load_encoder_checkpoint
+
+    device = resolve_device(args.device)
+    cfg = _eval_config(args.tiny)
+    state = create_train_state(cfg, torch.float32, device, seed=0)
+    ckpt_dir = args.checkpoint_dir
+    if ckpt_dir is None and not args.tiny:
+        ckpt_dir = _first(*FLAGSHIP_RUNS)
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir)
+        if mgr.latest_step() is not None:
+            mgr.restore(state)
+            log.info("restored step %d from %s", state.step, ckpt_dir)
+        else:
+            log.warning("%s holds no checkpoint: evaluating the seeded draw", ckpt_dir)
+    args.checkpoint_dir = ckpt_dir
+    vocoder = state.vocoder.eval()
+    synth = torch.no_grad()(lambda mel: vocoder(mel)["waveform"])
+
+    n_mels = cfg.mel.n_mels
+    gens = [torch.Generator().manual_seed(s) for s in (1, 2)]
+    if args.tiny:
+        spk_model = EcapaTdnn(n_mels, channels=32, gen=gens[0])
+        emo_model = Emotion2Vec(n_mels, hidden_dim=32, num_layers=1, num_heads=4, gen=gens[1])
+    else:
+        spk_model, emo_model = EcapaTdnn(n_mels, gen=gens[0]), Emotion2Vec(n_mels, gen=gens[1])
+    encoders_trained = False
+    enc_path = args.encoders or _first(*ENCODER_FILES, exists=os.path.isfile)
+    if not args.tiny and enc_path and os.path.isfile(enc_path):
+        # SIM with trained discriminative encoders: random-init encoders map
+        # every clip near one point
+        try:
+            _, spk_model, emo_model, enc_step = load_encoder_checkpoint(enc_path, device)
+            encoders_trained = True
+            log.info("SIM encoders: trained (%s step %d)", enc_path, enc_step)
+        except Exception:
+            log.exception("could not load the trained encoders; SIM uses random-init encoders "
+                          "(non-discriminative)")
+    spk_model, emo_model = spk_model.to(device).eval(), emo_model.to(device).eval()
+    evaluator = StreamEvaluator(
+        synthesize_fn=synth,
+        speaker_embed_fn=torch.no_grad()(lambda m: spk_model(m)),
+        emotion_embed_fn=torch.no_grad()(lambda m: emo_model(m)),
+        mel_fn=torch.no_grad()(lambda w: audio_to_mel(w, cfg)),
+    )
+    reference_texts = [None] * args.samples
+    judge_gate = None
+    if args.dataset == "formant":
+        # held-out clips (utterance ids disjoint from any training draw)
+        from hifigan_tpu_torch.eval.asr import load_competent_ctc
+        from hifigan_tpu_torch.train.corpus import PHONES, FormantSpeechCorpus, plan_phone_ids
+
+        corpus = FormantSpeechCorpus(n_speakers=8)
+        clips, reference_texts = [], []
+        for i in range(args.samples):
+            wav, plan, _ar = corpus.utterance(i % 8, 10_000 + i, return_plan=True)
+            clips.append(wav)
+            reference_texts.append(" ".join(PHONES[p] for p in plan_phone_ids(plan) if p != 0))
+        # the offline ASR-BLEU judge, gated on ground truth: a judge that
+        # cannot transcribe the clips themselves gives no score
+        candidates = [args.asr] if args.asr else list(JUDGE_FILES)
+        evaluator.transcribe_fn, judge_gate = load_competent_ctc(candidates, clips[:4], reference_texts[:4],
+                                                                 device=device)
+        if evaluator.transcribe_fn is None:
+            log.error("no competent CTC judge among %s: ASR-BLEU will be SKIPPED (gate: %s)", candidates,
+                      json.dumps(judge_gate))
+        # whole utterances, zero-padded to one shared length: ASR-BLEU scores
+        # whole synthesised utterances against whole transcripts
+        seg = -(-max(len(c) for c in clips) // 1024) * 1024
+    else:
+        data = SyntheticSpeechDataset(segment_samples=args.segment_samples, size=args.samples)
+        clips = [data[i] for i in range(args.samples)]
+        seg = args.segment_samples
+    samples = []
+    with torch.no_grad():
+        for clip, ref_text in zip(clips, reference_texts):
+            audio = np.zeros(seg, np.float32)
+            audio[: min(seg, len(clip))] = clip[:seg]
+            samples.append({"mel": audio_to_mel(torch.from_numpy(audio[None]).to(device), cfg),
+                            "reference_text": ref_text,
+                            "valid_frames": -(-min(seg, len(clip)) // cfg.mel.hop_length)})
+    results = evaluator.evaluate_batch(samples)
+    extra = {
+        "dataset": args.dataset,
+        "checkpoint_dir": args.checkpoint_dir,
+        "restored_step": int(state.step),
+        "sim_encoders": "trained" if encoders_trained else "random-init (non-discriminative)",
+    }
+    if args.dataset == "formant":
+        extra["asr_judge_gate"] = judge_gate
+    if args.save_wavs:
+        # listening pairs (reference, synthesis), the shared padding trimmed
+        os.makedirs(args.save_wavs, exist_ok=True)
+        for i, s in enumerate(samples):
+            wav = synth(s["mel"])[0, 0].cpu().numpy()
+            n = min(len(wav), int(s.get("valid_frames", 1 << 30)) * cfg.mel.hop_length)
+            write_wav(os.path.join(args.save_wavs, f"synth_{i:02d}.wav"), wav[:n])
+            write_wav(os.path.join(args.save_wavs, f"ref_{i:02d}.wav"), clips[i][:n])
+        extra["wav_dir"] = args.save_wavs
+        log.info("wrote %d (ref, synth) pairs to %s", len(samples), args.save_wavs)
+    if args.compare_random:
+        # fidelity control: the same clips through a random-init generator
+        rnd_vocoder = create_train_state(cfg, torch.float32, device, seed=99).vocoder.eval()
+        rnd_eval = StreamEvaluator(
+            synthesize_fn=torch.no_grad()(lambda mel: rnd_vocoder(mel)["waveform"]),
+            speaker_embed_fn=evaluator.speaker_embed_fn,
+            emotion_embed_fn=evaluator.emotion_embed_fn,
+            mel_fn=evaluator.mel_fn,
+        )
+        rnd_stats = aggregate_statistics(rnd_eval.evaluate_batch(samples))
+        extra["random_init_control"] = {k: round(v["mean"], 4) for k, v in rnd_stats.items()}
+    report = create_evaluation_report(results, args.output, extra=extra)
+    print(json.dumps({k: report["benchmarks"][k]["status"] for k in report["benchmarks"]}
+                     | {"stats": {k: round(v["mean"], 4) for k, v in report["statistics"].items()}}))
+
+
+def cmd_eval_clone(args) -> None:
+    """Voice-cloning demonstration: trained-encoder SIM separation, the
+    cross-speaker transfer grid and the conditioning ablation
+    (:mod:`hifigan_tpu_torch.eval.cloning_eval`)."""
+    from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.eval.cloning_eval import encoder_separation, evaluate_cloning_transfer, speaker_centroids
+    from hifigan_tpu_torch.train import audio_to_mel, create_train_state
+    from hifigan_tpu_torch.train.checkpoint import CheckpointManager
+    from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
+    from hifigan_tpu_torch.weights import load_encoder_checkpoint
+
+    device = resolve_device(args.device)
+    cfg = _eval_config(args.tiny)
+    state = CheckpointManager(args.checkpoint_dir).restore(create_train_state(cfg, torch.float32, device, seed=0))
+    log.info("cloning model: %s step %d", args.checkpoint_dir, state.step)
+    # the independently trained speaker encoder measures SIM
+    _, ecapa, _emo, enc_step = load_encoder_checkpoint(args.encoders, device)
+    log.info("trained encoders: %s step %d", args.encoders, enc_step)
+    vocoder = state.vocoder.eval()
+    synth = torch.no_grad()(lambda m, r: vocoder(m, reference_mel=r)["waveform"])
+    embed = torch.no_grad()(lambda m: ecapa(m))
+    mel_of_wav = torch.no_grad()(lambda w: audio_to_mel(w.to(device), cfg))
+
+    corpus = FormantSpeechCorpus(n_speakers=32)
+    sep = encoder_separation(embed, mel_of_wav, corpus, n_speakers=args.n_speakers)
+    log.info("encoder separation: same %.3f vs cross %.3f (delta %.3f)", sep["same_speaker_mean"],
+             sep["cross_speaker_mean"], sep["separation"])
+    cents = speaker_centroids(embed, mel_of_wav, corpus, n_speakers=args.n_speakers)
+    report = evaluate_cloning_transfer(synth, embed, mel_of_wav, mel_of_wav, corpus, n_speakers=args.n_speakers,
+                                       n_contents=args.n_contents, centroids=cents)
+    report["encoder_separation"] = sep
+    report["checkpoint_dir"] = args.checkpoint_dir
+    report["restored_step"] = int(state.step)
+    report["encoder_step"] = enc_step
+    if not args.full_pairs:
+        report.pop("pairs")
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(report, f, indent=2)
+    print(json.dumps({k: v for k, v in report.items() if k != "pairs"}, indent=2))
+
+
 def _tiny_s2st_configs():
     from hifigan_tpu_torch.models.code_vocoder import CodeVocoderConfig
     from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig
@@ -275,6 +487,38 @@ def main(argv=None) -> None:
     t.add_argument("--stft_weight", type=float, default=0.0, help="multi-resolution STFT loss weight")
     t.add_argument("--adv_type", choices=["lsgan", "hinge"], default="lsgan")
     t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("eval", help="run the evaluation suite")
+    e.add_argument("--checkpoint_dir", default=None,
+                   help="restore the newest train-state file from this dir (default: the first of "
+                        f"{', '.join(FLAGSHIP_RUNS)} that exists; none there: the seeded draw)")
+    e.add_argument("--dataset", choices=["synthetic", "formant"], default="formant",
+                   help="held-out formant speech clips (default) or the synthetic tones")
+    e.add_argument("--samples", type=int, default=4)
+    e.add_argument("--compare_random", action="store_true",
+                   help="also report a random-init generator on the same clips (fidelity control)")
+    e.add_argument("--segment_samples", type=int, default=8192)
+    e.add_argument("--output", default=None)
+    e.add_argument("--tiny", action="store_true")
+    e.add_argument("--asr", default=None,
+                   help="a save_ctc_judge file for offline ASR-BLEU (default: the first of "
+                        f"{', '.join(JUDGE_FILES)} that passes the gate)")
+    e.add_argument("--encoders", default=None,
+                   help=f"a save_encoder_checkpoint file for SIM (default: {ENCODER_FILES[0]} when present)")
+    e.add_argument("--save_wavs", default=None, help="write (reference, synthesis) WAV pairs here")
+    e.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    e.set_defaults(fn=cmd_eval)
+
+    ec = sub.add_parser("eval-clone", help="voice-cloning transfer/ablation evaluation with trained encoders")
+    ec.add_argument("--checkpoint_dir", default="runs/cloning", help="a dir of train-state files")
+    ec.add_argument("--encoders", default=ENCODER_FILES[0], help="a save_encoder_checkpoint file")
+    ec.add_argument("--n_speakers", type=int, default=8)
+    ec.add_argument("--n_contents", type=int, default=4)
+    ec.add_argument("--output", default=None)
+    ec.add_argument("--full_pairs", action="store_true", help="keep the per-pair transfer table in the report")
+    ec.add_argument("--tiny", action="store_true", help="cli eval --tiny's widths")
+    ec.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    ec.set_defaults(fn=cmd_eval_clone)
 
     s = sub.add_parser("simulate", help="run a streaming agent session")
     s.add_argument("--agent", choices=["asr", "s2tt", "s2st", "waitk-s2tt", "waitk-s2st"], default="s2st")

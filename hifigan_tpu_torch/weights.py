@@ -12,9 +12,11 @@ included.
 
 Also the S2ST stack's configs as the JAX package's trainers write them
 (``streamspeech_config.json`` with its feature revision,
-``code_config.json``), and the port's own S2ST checkpoint: one
-``torch.save`` of both models' configs and state dicts, what ``cli
-simulate --checkpoint`` reads.
+``code_config.json``), and the port's own checkpoints, each one
+``torch.save`` of configs and state dicts, read strictly: the S2ST pair
+(what ``cli simulate --checkpoint`` reads), the judge encoders and the CTC
+judge (what ``cli eval --encoders`` / ``--asr`` and ``cli eval-clone
+--encoders`` read).
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ import torch
 from torch import nn
 
 from hifigan_tpu_torch.models.code_vocoder import CodeVocoder, CodeVocoderConfig
+from hifigan_tpu_torch.models.embeddings import EcapaTdnn, Emotion2Vec
 from hifigan_tpu_torch.models.streamspeech import FEATURE_REV, StreamSpeechConfig, StreamSpeechS2ST
+from hifigan_tpu_torch.ops.stft import MelConfig
+from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, build_models, strip_classifier
 
 log = logging.getLogger("hifigan_tpu_torch")
 
@@ -184,3 +189,47 @@ def load_s2st_checkpoint(path: str, device: str | torch.device) -> tuple[StreamS
     code_vocoder = CodeVocoder(code_cfg, gen=gen)
     code_vocoder.load_state_dict(ckpt["code_vocoder"])
     return model.to(device).eval(), code_vocoder.to(device).eval()
+
+
+def save_encoder_checkpoint(path: str, cfg: EncoderTrainConfig, ecapa: EcapaTdnn, emotion2vec: Emotion2Vec,
+                            step: int = 0) -> None:
+    """Write the judge encoders (their config, both state dicts with any
+    classifier head stripped, and the training step) to one file."""
+    torch.save({"config": dataclasses.asdict(cfg), "step": int(step),
+                "ecapa": strip_classifier(ecapa.state_dict()),
+                "emotion2vec": strip_classifier(emotion2vec.state_dict())}, path)
+
+
+def load_encoder_checkpoint(path: str, device: str | torch.device
+                            ) -> tuple[EncoderTrainConfig, EcapaTdnn, Emotion2Vec, int]:
+    """``(config, ECAPA-TDNN, Emotion2Vec, step)`` of a
+    :func:`save_encoder_checkpoint` file, fp32, in eval mode, on
+    ``device``; raises unless each state dict fits its model exactly."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    d = dict(ckpt["config"])
+    cfg = EncoderTrainConfig(**{**d, "mel": MelConfig(**d["mel"])})
+    ecapa, emo = build_models(cfg, gen=torch.Generator().manual_seed(0))
+    ecapa.load_state_dict(ckpt["ecapa"])
+    emo.load_state_dict(ckpt["emotion2vec"])
+    return cfg, ecapa.to(device).eval(), emo.to(device).eval(), int(ckpt["step"])
+
+
+def save_ctc_judge(path: str, model: StreamSpeechS2ST, step: int = 0) -> None:
+    """Write a CTC judge (the S2ST trainer's tree: with the transition
+    head, without the vocoder), its config with the feature revision and
+    its training step to one file."""
+    if model.vocoder is not None or model.transition_head is None:
+        raise ValueError("a CTC judge is the S2ST trainer's tree: a transition head and no vocoder")
+    torch.save({"streamspeech_config": {**dataclasses.asdict(model.config), "_feature_rev": FEATURE_REV},
+                "step": int(step), "s2st": model.state_dict()}, path)
+
+
+def load_ctc_judge(path: str, device: str | torch.device) -> tuple[StreamSpeechS2ST, int]:
+    """``(model, step)`` of a :func:`save_ctc_judge` file, fp32, in eval
+    mode, on ``device``; the config's feature revision is checked
+    (:func:`_streamspeech_config`) and the state dict must fit exactly."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    cfg = _streamspeech_config(ckpt["streamspeech_config"], path)
+    model = StreamSpeechS2ST(cfg, gen=torch.Generator().manual_seed(0), with_vocoder=False)
+    model.load_state_dict(ckpt["s2st"])
+    return model.to(device).eval(), int(ckpt["step"])

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``hifigan_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, orbax, yaml or the JAX package, and
 the entry points (the generator, the vocoder, the train state, ``cli
-train``, the S2ST model, the unit vocoder, the S2ST runtime and ``cli
-simulate``) run on the card unless the caller asks for the CPU."""
+train``, the S2ST model, the unit vocoder, the S2ST runtime, ``cli
+simulate``, ``cli eval``, ``cli eval-clone`` and the CTC judge) run on the
+card unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -68,3 +69,25 @@ def test_entry_on_cpu_runs_the_flagship():
         wav = model(mel, spk, emo)
     assert wav.shape == (2, 1, 64 * 256)
     assert bool(torch.isfinite(wav).all()) and float(wav.abs().max()) <= 1.0
+
+
+def test_eval_entry_points_without_a_card_raise(monkeypatch, tmp_path):
+    """``cli eval``, ``cli eval-clone``, the CTC judge and the HF
+    transcriber raise before they read or write a file; the judge gate
+    records the error of a candidate it cannot load."""
+    from hifigan_tpu_torch.eval import asr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["eval", "--tiny", "--checkpoint_dir", str(tmp_path / "ckpt")],
+                 ["eval-clone", "--tiny", "--checkpoint_dir", str(tmp_path / "ckpt"),
+                  "--encoders", str(tmp_path / "enc.pt")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert not (tmp_path / "ckpt").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asr.CTCTranscriber(str(tmp_path / "judge.pt"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asr.HFTranscriber()
+    (tmp_path / "judge.pt").write_bytes(b"")
+    judge, gate = asr.load_competent_ctc([str(tmp_path / "judge.pt")], [], [])
+    assert judge is None and "no CUDA device" in gate["candidates"][0]["error"]
