@@ -70,14 +70,28 @@ Phases, each printing its own line:
      path at one pair and a zero reference moving the waveform; the
      synthesis's and the cloning call's median time, the evaluator's
      processing time and audio-seconds a second, both commands' wall time;
- 10. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
-     calls, 3 train steps, one S2ST session and 10 of eval-clone's cloning
-     calls: the device's busy share of the window, launches per call (and
-     per policy call of the session), the call's peak device memory and
-     device time per kernel family (attention, the convolutions' backward,
-     FFT and the optimiser each its own), and the device time inside the
-     extractor's and attention's profiler ranges; then the bf16 forward's
-     wall time again.
+ 10. HMT: the simultaneous beam search and `cli eval-s2st` at the widths
+     of the JAX package's trained runs/s2st3 (d 256, 6 + 3 layers, 4 heads,
+     vocab 32, chunk 8, with the transition head) and runs/unit_vocoder
+     (HiFi-GAN V1 at 512, embed 128), seeded, fp32, TF32 off: the beam and
+     HMT programs on the card against a CPU copy within 1e-4 of each
+     output's peak (_hmt_prefill, a KV step at 16 rows under each gate,
+     _decode_scores_hmt, _prefill_lp and a _beam_step); continue_text_hmt
+     under each gate, a call and its resumption, equal on the card and the
+     CPU where the decisions' margins allow; cli eval-s2st through cli.main
+     over 2 held-out utterances and four text policies (JAX's report keys,
+     finite F1 and AL, the seeded judge failing its gate, no GRC launch);
+     then the wall time and real-time factor of an HMT session of each
+     gate over the S2ST phase's 5 s of source, the KV HMT step's and the
+     beam step's median time, the command's wall time and peak memory;
+ 11. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
+     calls, 3 train steps, one S2ST session, one HMT session (learned gate)
+     and 10 of eval-clone's cloning calls: the device's busy share of the
+     window, launches per call (and per policy call of the sessions), the
+     call's peak device memory and device time per kernel family
+     (attention, the convolutions' backward, FFT and the optimiser each its
+     own), and the device time inside the extractor's and attention's
+     profiler ranges; then the bf16 forward's wall time again.
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
@@ -111,21 +125,29 @@ from hifigan_tpu_torch import (
 from hifigan_tpu_torch import cli
 from hifigan_tpu_torch.eval.cloning_eval import EVAL_CONTENT_BASE, EVAL_REF_BASE, _pad
 from hifigan_tpu_torch.eval.evaluator import StreamEvaluator
+from hifigan_tpu_torch.models.code_vocoder import CodeVocoder, CodeVocoderConfig
 from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig, StreamSpeechS2ST
 from hifigan_tpu_torch.ops.cuda import build, grc_kernel
 from hifigan_tpu_torch.ops.grc_lora import group_stats
 from hifigan_tpu_torch.streaming import incremental as inc
 from hifigan_tpu_torch.streaming import run_streaming_session
-from hifigan_tpu_torch.streaming.agents import S2STAgent
+from hifigan_tpu_torch.streaming import runtime as s2st_runtime
+from hifigan_tpu_torch.streaming.agents import S2STAgent, S2TTAgent
 from hifigan_tpu_torch.streaming.harness import TextSegment
-from hifigan_tpu_torch.streaming.runtime import UNIT_BUCKETS, S2STInference, _bucket
+from hifigan_tpu_torch.streaming.runtime import UNIT_BUCKETS, S2STInference, S2STInferenceConfig, _bucket
 from hifigan_tpu_torch.train import audio_to_mel, make_eval_step, make_train_step
 from hifigan_tpu_torch.train.checkpoint import CheckpointManager
 from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
 from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
 from hifigan_tpu_torch.train.device_data import build_audio_bank, make_device_sampler
 from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, build_models
-from hifigan_tpu_torch.weights import load_encoder_checkpoint, save_ctc_judge, save_encoder_checkpoint
+from hifigan_tpu_torch.weights import (
+    load_encoder_checkpoint,
+    read_s2st_step,
+    save_ctc_judge,
+    save_encoder_checkpoint,
+    save_s2st_checkpoint,
+)
 
 BATCH, FRAMES, SAMPLE_RATE, HOP = 8, 256, 22050, 256
 REF_FRAMES = 128  # the cloning phase's reference clips
@@ -170,6 +192,23 @@ EVAL_CLONE_REPORT_KEYS = {"n_transfer_pairs", "transfer_verified_rate", "transfe
                           "transfer_sim_target_mean", "transfer_sim_source_mean", "mel_l1_to_target_rendition_mean",
                           "mel_l1_to_source_rendition_mean", "ablation", "encoder_separation", "checkpoint_dir",
                           "restored_step", "encoder_step"}
+# The HMT phase: cli eval-s2st's stack at the widths of the JAX package's
+# trained runs/s2st3 (its streamspeech_config.json is runs/asr_judge's,
+# JUDGE_CONFIG; the S2ST trainer's tree, with the transition head) and
+# runs/unit_vocoder (code_config.json: HiFi-GAN V1 at 512), seeded, with
+# eval-s2st's S2STInferenceConfig(max_target_len=64).  The program checks at
+# continue_text_hmt's 4 beams x 4 read candidates (16 rows), the beam step at
+# 5 rows; cli eval-s2st over 2 held-out utterances and its four text
+# policies without wait-k (the JAX package's WaitkS2TTAgent has no
+# end-of-buffer stop, and a seeded decoder writes no EOS: ROADMAP Queue 3).
+S2ST3_CONFIG = JUDGE_CONFIG
+UNIT_VOCODER_CONFIG = dict(unit_vocab_size=32, embed_dim=128, upsample_factors=(8, 8, 2, 2), hidden_channels=512,
+                           max_duration_per_unit=16, speaker_dim=0, dur_prediction=True, f0=False, f0_quant_bins=0)
+HMT_MAX_TARGET_LEN, HMT_BEAM, HMT_CANDS, HMT_BEAM_STEP_ROWS = 64, 4, 4, 5
+HMT_SAMPLES, HMT_POLICIES = 2, ("offline_greedy", "stride1_greedy", "hmt_confidence", "hmt_learned")
+EVAL_S2ST_REPORT_KEYS = {"checkpoint_dir", "restored_step", "policies", "asr_judge"}
+HMT_WRITE_THRESHOLD = 0.5  # continue_text_hmt's default
+
 # The eval sample's metrics on the card against the CPU (TF32 off; the card
 # runs the fp32 kernel, the CPU the plain chain): SIM is a cosine of unit
 # embeddings; mel-L1 and MCD are relative to their value.
@@ -896,6 +935,229 @@ def _check_eval_clone(files: dict, directory: str) -> dict:
             "moved": moved, "content_mel": content_mel, "ref_mel": ref_mel}
 
 
+def _hmt_stacks() -> tuple[S2STInference, S2STInference]:
+    """The seeded S2ST3_CONFIG stack and UNIT_VOCODER_CONFIG unit vocoder,
+    fp32, on the card and (the same weights) on the CPU."""
+    model = StreamSpeechS2ST(StreamSpeechConfig(**S2ST3_CONFIG), gen=torch.Generator().manual_seed(13),
+                             with_vocoder=False).eval()
+    code = CodeVocoder(CodeVocoderConfig(**UNIT_VOCODER_CONFIG), gen=torch.Generator().manual_seed(14)).eval()
+    cfg = S2STInferenceConfig(max_target_len=HMT_MAX_TARGET_LEN)
+    cpu = S2STInference(copy.deepcopy(model), copy.deepcopy(code), cfg)
+    return S2STInference(model.cuda(), code.cuda(), cfg), cpu
+
+
+def _check_hmt_programs(card: S2STInference, cpu: S2STInference) -> dict:
+    """The beam and HMT programs on the card against the CPU, on the CPU's
+    encoder output over 40 frames (a 64-frame bucket), TF32 off, within 1e-4
+    of each output's peak: ``_hmt_prefill`` of 4 rows of 64 tokens under 4
+    read lengths (the cache), one KV step at 16 rows gathered by parent
+    under 16 distinct read lengths for each gate (log-probs; the learned
+    one's write probabilities), ``_decode_scores_hmt`` over 16 rows, and
+    ``_prefill_lp`` then one ``_beam_step`` at 5 reordered rows.  Returns
+    each check's (max err, tolerance) and the card's inputs for timing."""
+    g = torch.Generator().manual_seed(23)
+    cfg, L = card.model.config, HMT_MAX_TARGET_LEN
+    mel = torch.randn((40, cfg.input_dim), generator=g).numpy()
+    enc = cpu.encode_prefix(mel)["enc"]
+    S, rows = enc.shape[1], HMT_BEAM * HMT_CANDS
+    tokens = torch.randint(3, cfg.vocab_size, (HMT_BEAM, L), generator=g)
+    tokens[:, 0] = card.cfg.bos_id
+    reads0 = torch.tensor([1, 17, 33, 40])
+    parents = torch.arange(rows) // HMT_CANDS
+    last = torch.randint(3, cfg.vocab_size, (rows,), generator=g)
+    reads = torch.randperm(S, generator=g)[:rows] + 1
+    rows_tokens = torch.randint(3, cfg.vocab_size, (rows, L), generator=g)
+    rows_tokens[:, 0] = card.cfg.bos_id
+    buf = torch.zeros((HMT_BEAM_STEP_ROWS, L), dtype=torch.int64)
+    buf[:, :8] = tokens[0, :8]
+    beam_parents, beam_tokens = torch.tensor([3, 1, 1, 0, 4]), torch.randint(3, cfg.vocab_size, (5,), generator=g)
+    out, inputs = {}, {}
+    with torch.no_grad():
+        for side, inf in (("card", card), ("cpu", cpu)):
+            dev = inf.device
+            ckv = inc.cross_kv(inf.model.text_decoder, enc.to(dev))
+            cache = inf._hmt_prefill(ckv, tokens.to(dev), inc.init_cache(inf.decoder_spec, HMT_BEAM, L, dev),
+                                     reads0.to(dev))
+            cache = inc.with_index(cache, 20)
+            o = {"_hmt_prefill cache k": cache.k, "_hmt_prefill cache v": cache.v}
+            step_args = (last.to(dev), parents.to(dev), reads.to(dev))
+            for learned in (False, True):
+                lp, wp, _ = inf._hmt_kv_step(ckv, cache, *step_args, learned=learned)
+                o[f"KV step ({'learned' if learned else 'confidence'}) log-probs"] = lp
+                if learned:
+                    o["KV step (learned) write probabilities"] = wp
+            lp, wp = inf._decode_scores_hmt(enc.to(dev), rows_tokens.to(dev), reads.to(dev))
+            o["_decode_scores_hmt log-probs"], o["_decode_scores_hmt write probabilities"] = lp, wp
+            lp, beam_cache = inf._prefill_lp(ckv, buf.to(dev), inc.init_cache(inf.decoder_spec, 5, L, dev))
+            beam_cache = inc.with_index(beam_cache, 8)
+            o["_prefill_lp log-probs"] = lp
+            o["_beam_step log-probs"] = inf._beam_step(ckv, beam_cache, beam_tokens.to(dev), beam_parents.to(dev))[0]
+            out[side] = o
+            if side == "card":
+                inputs = {"ckv": ckv, "cache": cache, "step_args": step_args, "beam_cache": beam_cache,
+                          "beam_args": (beam_tokens.to(dev), beam_parents.to(dev))}
+    checks = {name: _peak_err(out["card"][name], out["cpu"][name]) for name in out["cpu"]}
+    for name, (err, tol) in checks.items():
+        if not err <= tol:
+            raise AssertionError(f"HMT {name}: card vs CPU max err {err:.3g} > {tol:.3g}")
+    return {"checks": checks, "inputs": inputs}
+
+
+def _hmt_margin(lp: np.ndarray, wp) -> float:
+    """The closest decision a KV HMT step's scores feed: the gate (the
+    write probability, or the top token's probability with and without
+    EOS, against the threshold) and, per row, the gaps between the top
+    beam + 2 log-probs (the argpartition boundary and the candidates'
+    order)."""
+    lp = np.asarray(lp, np.float64)
+    gates = [wp] if wp is not None else [np.exp(lp.max(-1)), np.exp(np.delete(lp, 2, axis=-1).max(-1))]
+    m = min(float(np.abs(np.asarray(p, np.float64) - HMT_WRITE_THRESHOLD).min()) for p in gates)
+    top = -np.sort(-lp, axis=-1)[:, : HMT_BEAM + 2]
+    return min(m, float(np.abs(np.diff(top, axis=-1)).min()))
+
+
+def _hmt_state_key(st) -> tuple:
+    return (st.need_read, [(h.tokens, h.num_read, h.reads, h.finished, h.row) for h in st.beams],
+            [(h.tokens, h.num_read, h.reads, h.finished, h.row) for h in st.finished])
+
+
+def _check_hmt_continuations(card: S2STInference, cpu: S2STInference) -> dict:
+    """For each gate, one ``continue_text_hmt`` call over 40 frames of a
+    noise mel (the source open) and the same state resumed over all 72
+    (the source finished), on the card and on the CPU, each side encoding
+    its own prefix.  The states (beams, reads, read pointers, rows,
+    ``need_read``) must be equal after each call where the margins allow:
+    where they are not, the runs must part after a KV step whose closest
+    decision lies within 10x the float error measured between the two
+    sides' KV steps before it (counted as a near tie)."""
+    mel = torch.randn((72, card.model.config.input_dim), generator=torch.Generator().manual_seed(24)).numpy()
+    tapes = {"cuda": [], "cpu": []}
+    step = s2st_runtime._HmtKvStepper.step
+
+    def taped(stepper, last, parents, read_lens):
+        lp, wp = step(stepper, last, parents, read_lens)
+        tapes["cuda" if stepper.inf is card else "cpu"].append((np.array(last), np.array(parents),
+                                                                 np.array(read_lens), lp, wp))
+        return lp, wp
+
+    s2st_runtime._HmtKvStepper.step = taped
+    result = {"compared": 0, "equal": 0, "near_ties": [], "float_err": 0.0, "tokens": {}}
+    try:
+        for transition in ("confidence", "learned"):
+            states = {"cuda": None, "cpu": None}
+            tapes["cuda"].clear()
+            tapes["cpu"].clear()
+            for n, finished in ((40, False), (72, True)):
+                for side, inf in (("cuda", card), ("cpu", cpu)):
+                    enc = inf.encode_prefix(mel[:n])
+                    states[side] = inf.continue_text_hmt(enc["enc"], [], src_len=enc["valid_frames"],
+                                                         source_finished=finished, state=states[side],
+                                                         transition=transition)
+                result["compared"] += 1
+                err, parted = 0.0, None
+                for i, (a, b) in enumerate(zip(tapes["cpu"], tapes["cuda"])):
+                    if any(not np.array_equal(x, y) for x, y in zip(a[:3], b[:3])):
+                        parted = i
+                        break
+                    err = max(err, float(np.abs(a[3][np.isfinite(a[3])] - b[3][np.isfinite(b[3])]).max()),
+                              0.0 if a[4] is None else float(np.abs(a[4] - b[4]).max()))
+                result["float_err"] = max(result["float_err"], err)
+                if _hmt_state_key(states["cuda"]) == _hmt_state_key(states["cpu"]):
+                    result["equal"] += 1
+                    continue
+                if not parted:
+                    raise AssertionError(f"continue_text_hmt ({transition}) differs on the card and the CPU although "
+                                         "every KV step's inputs were equal")
+                margin = _hmt_margin(*tapes["cpu"][parted - 1][3:])
+                if margin > 10 * err:
+                    raise AssertionError(f"continue_text_hmt ({transition}): the card and the CPU part after KV step "
+                                         f"{parted - 1}, whose closest decision is {margin:.3g} > 10 x {err:.3g}")
+                result["near_ties"].append({"transition": transition, "step": parted - 1, "margin": margin,
+                                            "float_err": err})
+                break
+            result["tokens"][transition] = states["cuda"].best().tokens
+    finally:
+        s2st_runtime._HmtKvStepper.step = step
+    return result
+
+
+def _check_eval_s2st(card: S2STInference, directory: str) -> dict:
+    """``cli eval-s2st`` on the card, through ``cli.main`` as a user runs
+    it, over HMT_SAMPLES held-out formant utterances and HMT_POLICIES, with
+    the seeded stack written by ``save_s2st_checkpoint`` and phase 9's
+    seeded CTC judge: JAX's report keys, every policy's F1 and AL finite,
+    the judge failing its gate and the speech rows skipped (as JAX's report
+    reads for an untrained judge), no GRC-kernel launch (counted from 0
+    just before the command), its wall time and peak device memory."""
+    paths = {"s2st": f"{directory}/s2st.pt", "judge": f"{directory}/judge.pt", "out": f"{directory}/eval_s2st.json"}
+    save_s2st_checkpoint(paths["s2st"], card.model, card.code_vocoder, step=0)
+    save_ctc_judge(paths["judge"], StreamSpeechS2ST(StreamSpeechConfig(**JUDGE_CONFIG),
+                                                    gen=torch.Generator().manual_seed(10), with_vocoder=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its report line; the report is the file
+        cli.main(["eval-s2st", "--device", "cuda", "--checkpoint", paths["s2st"], "--asr", paths["judge"],
+                  "--samples", str(HMT_SAMPLES), "--policies", ",".join(HMT_POLICIES), "--output", paths["out"]])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    launches = dict(grc_kernel.launches)
+    if any(launches.values()):
+        raise AssertionError(f"cli eval-s2st launched the GRC kernels {launches}: its path runs none")
+    with open(paths["out"]) as f:
+        report = json.load(f)
+    if set(report) != EVAL_S2ST_REPORT_KEYS or list(report["policies"]) != list(HMT_POLICIES):
+        raise AssertionError(f"the eval-s2st report's keys {sorted(report)} / {list(report['policies'])} are not "
+                             f"JAX's {sorted(EVAL_S2ST_REPORT_KEYS)} / {list(HMT_POLICIES)}")
+    for name, row in report["policies"].items():
+        if (set(row) != {"token_f1", "average_lagging_ms", "n"} or row["n"] != HMT_SAMPLES
+                or not all(math.isfinite(row[k]) for k in ("token_f1", "average_lagging_ms"))):
+            raise AssertionError(f"eval-s2st policy {name}: {row}")
+    gate = report["asr_judge"]["gate"]
+    if gate["selected"] is not None or report["asr_judge"]["dir"] is not None or report["restored_step"] != 0:
+        raise AssertionError(f"the seeded judge passed its gate, or the step is wrong: {report['asr_judge']}, "
+                             f"restored_step {report['restored_step']} (file: {read_s2st_step(paths['s2st'])})")
+    return {"report": report, "wall_s": wall_s, "peak_mib": peak_mib, "launches": launches,
+            "cer": gate["candidates"][0].get("ground_truth_cer")}
+
+
+def _time_hmt(card: S2STInference, audio, inputs: dict) -> dict:
+    """Wall times, before any trace: one ``S2TTAgent(decode="hmt")`` session
+    of each gate over the S2ST phase's 5 s of source (host clock ending in a
+    synchronise; its real-time factor, tokens and writes before the source
+    ended), and the median of the KV HMT step (16 rows, the learned gate)
+    and of the beam step (5 rows) by CUDA events around one eager call
+    (``_time_ms``: the host's launches set the pace)."""
+    source_s = S2ST_AUDIO_SAMPLES / S2ST_SAMPLE_RATE
+    sessions = {}
+    for transition in ("confidence", "learned"):
+        agent = S2TTAgent(card, decode="hmt", hmt_transition=transition)
+        calls, policy = [0], agent.policy
+
+        def counted(states):
+            calls[0] += 1
+            return policy(states)
+
+        agent.policy = counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run_streaming_session(agent, audio, sample_rate=S2ST_SAMPLE_RATE, segment_size_ms=S2ST_SEGMENT_MS)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        sessions[transition] = {"wall_s": wall_s, "rtf": wall_s / source_s, "tokens": len(agent.committed_text_ids),
+                                "policy_calls": calls[0],
+                                "writes_before_end": sum(t < result.source_seconds
+                                                         for t in result.emission_source_seconds)}
+    with torch.no_grad():
+        kv_ms = _time_ms(lambda: card._hmt_kv_step(inputs["ckv"], inputs["cache"], *inputs["step_args"],
+                                                   learned=True))
+        beam_ms = _time_ms(lambda: card._beam_step(inputs["ckv"], inputs["beam_cache"], *inputs["beam_args"]))
+    return {"sessions": sessions, "kv_step_ms": kv_ms, "beam_step_ms": beam_ms}
+
+
 def _step_inputs(k, d, dtype, normalised, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -1193,7 +1455,36 @@ def main() -> int:
           f"(1 x {clone_ev['content_mel'].shape[-1]} content and {clone_ev['ref_mel'].shape[-1]} reference frames) "
           f"median {clone_call_ms:.3f} ms; cli eval-clone grid {clone_ev['wall_s']:.2f} s wall")
 
-    # 10. traces: where the device time goes, in the forward, the cloning call,
+    # 10. HMT: the simultaneous beam search and cli eval-s2st at the trained
+    # S2ST stack's widths, fp32 (TF32 off), checked and timed before any trace
+    hmt_card, hmt_cpu = _hmt_stacks()
+    hmt_programs = _check_hmt_programs(hmt_card, hmt_cpu)
+    hmt_cont = _check_hmt_continuations(hmt_card, hmt_cpu)
+    del hmt_cpu
+    with tempfile.TemporaryDirectory() as directory:
+        es = _check_eval_s2st(hmt_card, directory)
+    n_hmt = sum(p.numel() for p in hmt_card.model.parameters()) + sum(
+        p.numel() for p in hmt_card.code_vocoder.parameters())
+    print(f"hmt: S2ST3_CONFIG stack with the transition head and UNIT_VOCODER_CONFIG unit vocoder ({n_hmt} "
+          f"parameters, seeded), fp32, TF32 off; card vs CPU within 1e-4 of each output's peak: "
+          + "; ".join(f"{k} {e:.3g} (tol {t:.3g})" for k, (e, t) in hmt_programs["checks"].items())
+          + f"; continue_text_hmt card vs CPU: {hmt_cont['compared']} calls compared (2 gates x a call and its "
+          f"resumption), {hmt_cont['equal']} equal, near ties {json.dumps(hmt_cont['near_ties'])}, KV-step float "
+          f"error {hmt_cont['float_err']:.3g}, tokens {json.dumps(hmt_cont['tokens'])}; cli eval-s2st over "
+          f"{HMT_SAMPLES} held-out utterances: report keys equal JAX's, GRC-kernel launches {es['launches']}, judge "
+          f"ground-truth CER {es['cer']} (gate failed, speech rows skipped), policies "
+          + json.dumps(es["report"]["policies"]))
+    hmt_timing = _time_hmt(hmt_card, audio, hmt_programs["inputs"])
+    print(f"timing_hmt: {smi.stdout.strip().splitlines()[0]}; S2TTAgent(decode='hmt') sessions over "
+          f"{S2ST_AUDIO_SAMPLES / S2ST_SAMPLE_RATE:g} s of source: "
+          + "; ".join(f"{k} {v['wall_s']:.3f} s wall, real-time factor {v['rtf']:.4f}, {v['tokens']} tokens, "
+                      f"{v['policy_calls']} policy calls, {v['writes_before_end']} writes before the source ended"
+                      for k, v in hmt_timing["sessions"].items())
+          + f"; median KV HMT step ({HMT_BEAM * HMT_CANDS} rows, learned gate) {hmt_timing['kv_step_ms']:.3f} ms, beam "
+          f"step ({HMT_BEAM_STEP_ROWS} rows) {hmt_timing['beam_step_ms']:.3f} ms; cli eval-s2st {es['wall_s']:.2f} s "
+          f"wall, peak device memory {es['peak_mib']:.1f} MiB above what was held before it")
+
+    # 11. traces: where the device time goes, in the forward, the cloning call,
     # a train step and an S2ST session.  Last, after every timing: once the
     # profiler has traced the card, the host's launches may stay slower.
     with torch.no_grad():
@@ -1209,6 +1500,14 @@ def main() -> int:
                                                           segment_size_ms=S2ST_SEGMENT_MS), calls=1)
     s2st_trace["launches_per_policy_call"] = s2st_trace["launches_per_call"] / run["policy_calls"]
     print("trace: " + json.dumps({"call": "s2st_session", **s2st_trace}))
+    with torch.no_grad():
+        hmt_trace = _trace(lambda: run_streaming_session(S2TTAgent(hmt_card, decode="hmt", hmt_transition="learned"),
+                                                         audio, sample_rate=S2ST_SAMPLE_RATE,
+                                                         segment_size_ms=S2ST_SEGMENT_MS), calls=1)
+    hmt_trace["launches_per_policy_call"] = (hmt_trace["launches_per_call"]
+                                             / hmt_timing["sessions"]["learned"]["policy_calls"])
+    print("trace: " + json.dumps({"call": "hmt_learned_session", **hmt_trace}))
+    del hmt_card
     with torch.no_grad():
         print("trace: " + json.dumps({"call": "eval_clone_call", **_trace(
             lambda: eval_vocoder(clone_ev["content_mel"], reference_mel=clone_ev["ref_mel"]))}))

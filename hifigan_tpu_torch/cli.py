@@ -1,16 +1,18 @@
-"""Command-line interface of the port: ``train``, ``eval``, ``eval-clone``
-and ``simulate``.
+"""Command-line interface of the port: ``train``, ``eval``, ``eval-clone``,
+``eval-s2st`` and ``simulate``.
 
     python -m hifigan_tpu_torch.cli train --max_steps 1000 --checkpoint_dir ckpt [--bf16]
     python -m hifigan_tpu_torch.cli train --tiny --device cpu --max_steps 2 --checkpoint_dir /tmp/t
     python -m hifigan_tpu_torch.cli eval [--checkpoint_dir ckpt] [--encoders enc.pt] [--asr judge.pt]
     python -m hifigan_tpu_torch.cli eval --tiny --device cpu
     python -m hifigan_tpu_torch.cli eval-clone --checkpoint_dir ckpt --encoders enc.pt
+    python -m hifigan_tpu_torch.cli eval-s2st --checkpoint s2st.pt --asr judge.pt [--samples 8]
     python -m hifigan_tpu_torch.cli simulate --agent s2st [--audio in.wav] [--checkpoint s2st.pt]
-    python -m hifigan_tpu_torch.cli simulate --tiny --device cpu
+    python -m hifigan_tpu_torch.cli simulate --tiny --device cpu [--decode hmt --hmt_transition learned]
 
 Counterpart of ``hifigan_tpu/cli.py``'s ``train``, ``eval``,
-``eval-clone`` and ``simulate``, on the card unless ``--device cpu``.
+``eval-clone``, ``eval-s2st`` and ``simulate``, on the card unless
+``--device cpu``.
 
 ``train`` GAN-trains the vocoder on the synthetic pseudo-speech dataset,
 appending one JSON line of metrics every ``--log_every`` steps to
@@ -31,14 +33,23 @@ files (``eval``: the seeded draw when there are none), ``--encoders`` a
 ``weights.save_encoder_checkpoint`` file and ``--asr`` a
 ``weights.save_ctc_judge`` file.
 
-``simulate`` runs one streaming session of an agent over an utterance (a
-WAV file, or a row of the synthetic dataset) and prints JAX's JSON
-summary.  Its models are the seeded full-width pair (``--tiny``: tiny
-widths), or those of ``--checkpoint``, a ``torch.save`` file of
-:func:`hifigan_tpu_torch.weights.save_s2st_checkpoint` (the JAX
-package's orbax checkpoints are carried over with ``load_jax_params``).
-The formant-corpus utterance and the phone detokeniser of JAX's trained
-stack, and ``--decode hmt``, are not ported yet.
+``eval-s2st`` runs the simultaneous S2ST evaluation over held-out
+formant-corpus utterances: per text policy (greedy under three strides,
+wait-k, the HMT beam under the confidence and the learned gate, and the
+offline anchor) the token F1 and Average Lagging, and per speech policy
+the ASR-BLEU of the output speech when a CTC judge passes its gate.  It
+reads ``--checkpoint``, a :func:`~hifigan_tpu_torch.weights.save_s2st_checkpoint`
+file that carries both the S2ST model and the unit vocoder, where JAX
+reads ``--checkpoint_dir`` and ``--unit_vocoder`` orbax runs, and
+``--asr``, a ``weights.save_ctc_judge`` file.
+
+``simulate`` runs one streaming session of an agent over an utterance and
+prints JAX's JSON summary.  Its models are the seeded full-width pair
+(``--tiny``: tiny widths), or those of ``--checkpoint``; then the text is
+detokenised to phone names and, without ``--audio``, the utterance is the
+held-out formant-corpus one that ``--seed`` selects (else a row of the
+synthetic dataset).  The JAX package's orbax checkpoints are carried over
+with ``load_jax_params``.
 """
 
 from __future__ import annotations
@@ -210,6 +221,7 @@ FLAGSHIP_RUNS = ("runs/flagship2", "runs/flagship")
 ENCODER_FILES = ("runs/encoders7/encoders.pt", "runs/encoders/encoders.pt")
 JUDGE_FILES = ("runs/asr_judge/ctc_judge.pt", "runs/s2st3/ctc_judge.pt", "runs/s2st2/ctc_judge.pt",
                "runs/s2st/ctc_judge.pt")
+S2ST_FILES = ("runs/s2st3/s2st.pt", "runs/s2st2/s2st.pt", "runs/s2st/s2st.pt")
 
 
 def _first(*candidates, exists=os.path.isdir):
@@ -413,6 +425,142 @@ def _tiny_s2st_configs():
     return cfg, code
 
 
+def _phone_detokenizer(ids) -> str:
+    """A trained stack's token ids as phone names (``<id>`` outside the
+    phone set)."""
+    from hifigan_tpu_torch.train.corpus import PHONES
+    from hifigan_tpu_torch.train.s2st_task import TOKEN_OFFSET
+
+    return " ".join(PHONES[i - TOKEN_OFFSET + 1] if 1 <= i - TOKEN_OFFSET + 1 < len(PHONES) else f"<{i}>"
+                    for i in ids)
+
+
+def cmd_eval_s2st(args) -> None:
+    """The simultaneous S2ST evaluation over held-out formant utterances:
+    each text policy's token F1 and Average Lagging, and each speech
+    policy's ASR-BLEU of the output speech (a CTC judge that passes its
+    competence gate transcribes it), as JAX's ``cmd_eval_s2st``."""
+    from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.eval.asr import load_competent_ctc
+    from hifigan_tpu_torch.eval.asr_bleu import write_wav
+    from hifigan_tpu_torch.eval.metrics import corpus_bleu
+    from hifigan_tpu_torch.streaming import run_streaming_session
+    from hifigan_tpu_torch.streaming.agents import S2STAgent, S2TTAgent, WaitkS2STAgent, WaitkS2TTAgent
+    from hifigan_tpu_torch.streaming.runtime import S2STInference, S2STInferenceConfig
+    from hifigan_tpu_torch.train.corpus import PHONES, FormantSpeechCorpus, plan_phone_ids
+    from hifigan_tpu_torch.train.s2st_task import token_f1, translate
+    from hifigan_tpu_torch.weights import load_s2st_checkpoint, read_s2st_step
+
+    device = resolve_device(args.device)
+    if args.checkpoint is None:
+        args.checkpoint = _first(*S2ST_FILES, exists=os.path.isfile)
+        if args.checkpoint is None:
+            raise SystemExit(f"no S2ST checkpoint found (looked for {', '.join(S2ST_FILES)}); pass --checkpoint")
+    model, code_vocoder = load_s2st_checkpoint(args.checkpoint, device)
+    step = read_s2st_step(args.checkpoint)
+    log.info("s2st stack: %s step %d", args.checkpoint, step)
+    inf = S2STInference(model, code_vocoder, S2STInferenceConfig(max_target_len=64))
+    detok = _phone_detokenizer
+
+    corpus = FormantSpeechCorpus(n_speakers=32)
+    samples, src_texts = [], []
+    for i in range(args.samples):
+        wav, plan, _ar = corpus.utterance(i % 32, 0, content=2_000_000 + i, return_plan=True)
+        src_ids = plan_phone_ids(plan)
+        src_texts.append(" ".join(PHONES[p] for p in src_ids if p != 0))
+        samples.append((wav, translate(src_ids)))
+
+    policies = {
+        # the latency anchor: the whole source in one segment
+        "offline_greedy": (S2TTAgent, {"stride_n": 1}),
+        "stride1_greedy": (S2TTAgent, {"stride_n": 1}),
+        "stride2_greedy": (S2TTAgent, {"stride_n": 2}),
+        "stride4_greedy": (S2TTAgent, {"stride_n": 4}),
+        "waitk3": (WaitkS2TTAgent, {"k1": 3}),
+        "waitk7": (WaitkS2TTAgent, {"k1": 7}),
+        "hmt_confidence": (S2TTAgent, {"decode": "hmt", "hmt_transition": "confidence"}),
+        "hmt_learned": (S2TTAgent, {"decode": "hmt", "hmt_transition": "learned"}),
+    }
+    wanted = args.policies
+    if wanted is not None and not wanted.strip():
+        raise SystemExit("--policies needs policy names, 'all', or 'none'")
+    if wanted and wanted != "all":
+        keep = {p.strip() for p in wanted.split(",") if p.strip()}
+        if "none" in keep and len(keep) > 1:
+            raise SystemExit("--policies 'none' cannot be combined with policy names")
+        unknown = keep - set(policies) - {"none"}
+        if unknown:
+            raise SystemExit(f"unknown policies {sorted(unknown)}; choose from {sorted(policies)}")
+        policies = {k: v for k, v in policies.items() if k in keep}
+    report = {"checkpoint_dir": args.checkpoint, "restored_step": step, "policies": {}}
+    for name, (cls, kw) in policies.items():
+        f1s, als = [], []
+        seg_ms = 1_000_000 if name == "offline_greedy" else args.segment_size
+        for wav, ref_ids in samples:
+            agent = cls(inf, detokenize=detok, **kw)
+            res = run_streaming_session(agent, wav, sample_rate=16_000, segment_size_ms=seg_ms)
+            f1s.append(token_f1(list(getattr(agent, "committed_text_ids", [])), ref_ids))
+            als.append(res.average_lagging_ms)
+        report["policies"][name] = {"token_f1": round(float(np.mean(f1s)), 4),
+                                    "average_lagging_ms": round(float(np.mean(als)), 1), "n": len(samples)}
+        log.info("%s: F1=%.3f AL=%.0fms", name, report["policies"][name]["token_f1"],
+                 report["policies"][name]["average_lagging_ms"])
+
+    # the output speech's ASR-BLEU, by a judge that passes its competence
+    # gate on ground-truth source clips (one that cannot transcribe the
+    # source gives no score)
+    candidates = [args.asr] if args.asr else list(JUDGE_FILES)
+    asr, judge_gate = load_competent_ctc(candidates, [w for w, _ in samples[:4]], src_texts[:4], device=device)
+    sel = judge_gate.get("selected")
+    report["asr_judge"] = {
+        "dir": sel,
+        "independent": bool(sel) and os.path.realpath(sel) != os.path.realpath(args.checkpoint),
+        "gate": judge_gate,
+    }
+    if asr is None:
+        log.error("no competent CTC judge among %s: s2st ASR-BLEU SKIPPED (gate: %s)", candidates,
+                  json.dumps(judge_gate))
+    else:
+        # the speech policies; "offline" feeds the whole source as one segment
+        speech_policies = {
+            "offline": (S2STAgent, {}, 1_000_000),
+            "stride1": (S2STAgent, {}, args.segment_size),
+            "waitk3": (WaitkS2STAgent, {"k1": 3}, args.segment_size),
+        }
+        want_sp = [p.strip() for p in args.speech_policies.split(",") if p.strip()]
+        unknown_sp = set(want_sp) - set(speech_policies)
+        if not want_sp or unknown_sp:
+            raise SystemExit(f"--speech_policies: unknown {sorted(unknown_sp)}; choose from {sorted(speech_policies)}")
+        if args.save_wavs:
+            os.makedirs(args.save_wavs, exist_ok=True)
+        report["s2st_speech_tradeoff"] = {}
+        for pi, pname in enumerate(want_sp):
+            cls_sp, kw_sp, seg_sp = speech_policies[pname]
+            hyps, refs, als = [], [], []
+            for si, (wav, ref_ids) in enumerate(samples):
+                agent = cls_sp(inf, detokenize=detok, **kw_sp)
+                res = run_streaming_session(agent, wav, sample_rate=16_000, segment_size_ms=seg_sp)
+                out = res.waveform
+                hyps.append(asr(out) if len(out) else "")
+                refs.append(detok(list(ref_ids)))
+                als.append(res.average_lagging_ms)
+                if args.save_wavs and pi == 0 and si < 8:
+                    # listening pairs: (source, simultaneous output)
+                    for tag, audio in (("src", wav), ("out", out)):
+                        write_wav(os.path.join(args.save_wavs, f"s2st_{si:02d}_{tag}.wav"), np.asarray(audio))
+            row = {"bleu": round(corpus_bleu(hyps, refs), 2), "average_lagging_ms": round(float(np.mean(als)), 1),
+                   "n": len(samples), "example_hyp": hyps[0][:120], "example_ref": refs[0][:120]}
+            report["s2st_speech_tradeoff"][pname] = row
+            log.info("speech %s: ASR-BLEU %.2f AL=%.0fms", pname, row["bleu"], row["average_lagging_ms"])
+        # the headline row: the streaming (stride1) point if run, else the first
+        head = "stride1" if "stride1" in want_sp else want_sp[0]
+        report["s2st_asr_bleu"] = dict(report["s2st_speech_tradeoff"][head], policy=head)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(report, f, indent=2)
+    print(json.dumps(report))
+
+
 def cmd_simulate(args) -> None:
     from hifigan_tpu_torch.entry import build_s2st_inference, resolve_device
     from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig
@@ -436,10 +584,20 @@ def cmd_simulate(args) -> None:
         inf = build_s2st_inference(cfg, code, device=device, seed=0)
     agent_cls = {"asr": agents.ASRAgent, "s2tt": agents.S2TTAgent, "s2st": agents.S2STAgent,
                  "waitk-s2tt": agents.WaitkS2TTAgent, "waitk-s2st": agents.WaitkS2STAgent}[args.agent]
-    agent_kw = {"decode": args.decode} if args.agent in ("s2tt", "s2st") and args.decode else {}
+    agent_kw = {}
+    if args.agent in ("s2tt", "s2st") and args.decode:
+        agent_kw.update(decode=args.decode, hmt_transition=args.hmt_transition)
+    if args.checkpoint:
+        agent_kw["detokenize"] = _phone_detokenizer  # a trained stack speaks phone tokens
     agent = agent_cls(inf, **agent_kw)
     if args.audio:
         audio, sr = read_wav(args.audio)
+    elif args.checkpoint:
+        # a held-out formant utterance, what the trained stack was trained on
+        from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
+
+        audio = FormantSpeechCorpus(n_speakers=32).utterance(args.seed % 32, 0, content=2_000_000 + args.seed)
+        sr = 16_000
     else:
         audio, sr = SyntheticSpeechDataset(segment_samples=16000)[args.seed], 16000
     t0 = time.time()
@@ -520,6 +678,25 @@ def main(argv=None) -> None:
     ec.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
     ec.set_defaults(fn=cmd_eval_clone)
 
+    es = sub.add_parser("eval-s2st", help="streaming S2ST eval: per-policy token F1, AL and ASR-BLEU")
+    es.add_argument("--checkpoint", default=None,
+                    help="a save_s2st_checkpoint file: the S2ST model and the unit vocoder (default: the first of "
+                         f"{', '.join(S2ST_FILES)} that exists)")
+    es.add_argument("--asr", default=None,
+                    help="a save_ctc_judge file for the speech ASR-BLEU (default: the first of "
+                         f"{', '.join(JUDGE_FILES)} that passes the gate)")
+    es.add_argument("--samples", type=int, default=8)
+    es.add_argument("--policies", default="all",
+                    help="comma-separated subset of the text-policy grid ('none' skips it)")
+    es.add_argument("--speech_policies", default="stride1",
+                    help="comma-separated subset of the speech-policy grid (offline, stride1, waitk3)")
+    es.add_argument("--segment_size", type=int, default=320)
+    es.add_argument("--save_wavs", default=None,
+                    help="write (source, simultaneous output) WAV pairs for the first 8 samples here")
+    es.add_argument("--output", default=None)
+    es.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    es.set_defaults(fn=cmd_eval_s2st)
+
     s = sub.add_parser("simulate", help="run a streaming agent session")
     s.add_argument("--agent", choices=["asr", "s2tt", "s2st", "waitk-s2tt", "waitk-s2st"], default="s2st")
     s.add_argument("--audio", default=None, help="a 16-bit or 32-bit PCM WAV file")
@@ -527,7 +704,9 @@ def main(argv=None) -> None:
     s.add_argument("--tiny", action="store_true", help="tiny widths, seeded weights")
     s.add_argument("--checkpoint", default=None, help="a save_s2st_checkpoint file")
     s.add_argument("--decode", choices=["greedy", "hmt"], default=None)
-    s.add_argument("--seed", type=int, default=0, help="the synthetic utterance's row when no --audio")
+    s.add_argument("--hmt_transition", choices=["confidence", "learned"], default="confidence")
+    s.add_argument("--seed", type=int, default=0,
+                   help="the utterance when no --audio: held-out formant (with --checkpoint) or synthetic row")
     s.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
     s.set_defaults(fn=cmd_simulate)
 

@@ -1,7 +1,7 @@
 """The streaming runtime of the port: online fbank, CTC decoding, read/write
-policies, the simulation harness, the KV-cached text decoder, the S2ST
-inference runtime and the agents (counterpart of ``hifigan_tpu.streaming``,
-greedy decoding)."""
+policies, the simulation harness, the KV-cached text decoder, beam and HMT
+search, the S2ST inference runtime and the agents (counterpart of
+``hifigan_tpu.streaming``)."""
 
 from hifigan_tpu_torch.streaming.decode import ctc_greedy_collapse, ctc_prefix_frames
 from hifigan_tpu_torch.streaming.features import FbankConfig, OnlineFbank

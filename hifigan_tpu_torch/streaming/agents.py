@@ -1,12 +1,14 @@
 """Streaming agents: simultaneous S2ST, S2TT and ASR under the StreamSpeech
-(CTC-progress) and wait-k policies, greedy decoding.
+(CTC-progress) and wait-k policies.
 
 Counterpart of ``hifigan_tpu/streaming/agents.py``:
 
 * :class:`ASRAgent` emits the source-CTC text beyond what it committed;
-* :class:`S2TTAgent` gates on CTC progress and continues the text greedily
-  under a write budget, drains at the end of the source, and can trim to
-  whole words;
+* :class:`S2TTAgent` gates on CTC progress and continues the text under a
+  write budget, greedily (``decode="greedy"``, KV-cached) or with the HMT
+  simultaneous beam (``decode="hmt"``, gated by the top token's
+  probability or by the learned transition head), drains at the end of
+  the source, and can trim to whole words;
 * :class:`S2STAgent` adds units, from the encoder-fed T2U stream
   (``units_from="encoder"``) or from the decoder's features
   (``"decoder"``), and the unit vocoder's new waveform tail;
@@ -14,8 +16,9 @@ Counterpart of ``hifigan_tpu/streaming/agents.py``:
   budgets.
 
 Each policy call encodes the whole prefix received so far; only what is
-emitted is incremental.  ``decode="hmt"`` (the simultaneous beam) is not
-ported yet and raises.
+emitted is incremental.  The HMT beam's state is carried from call to call;
+beams that disagree with text already emitted are dropped, since an
+emission is never retracted.
 """
 
 from __future__ import annotations
@@ -104,18 +107,20 @@ class ASRAgent(_AgentBase):
 
 class S2TTAgent(_AgentBase):
     """Simultaneous speech-to-text translation under the CTC-progress gate,
-    with greedy KV-cached decoding."""
+    with KV-cached greedy decoding (``decode="greedy"``) or the HMT beam
+    (``decode="hmt"``, ``hmt_transition`` "confidence" or "learned")."""
 
     def __init__(self, inference, *, stride_n: int = 1, whole_words: bool = False, decode: str = "greedy",
-                 token_text: Optional[Callable[[int], str]] = None, **kw):
-        if decode == "hmt":
-            raise NotImplementedError("decode='hmt' needs the simultaneous beam search (streaming/beam.py), "
-                                      "not ported yet: ROADMAP Queue 1 item 6")
-        if decode != "greedy":
+                 hmt_transition: str = "confidence", token_text: Optional[Callable[[int], str]] = None, **kw):
+        if decode not in ("greedy", "hmt"):
             raise ValueError(f"decode must be 'greedy' or 'hmt', got {decode!r}")
+        if hmt_transition not in ("confidence", "learned"):
+            raise ValueError(f"hmt_transition must be 'confidence' or 'learned', got {hmt_transition!r}")
         super().__init__(inference, **kw)
         self.gate = StreamSpeechPolicy(stride_n=stride_n)
         self.whole_words = whole_words
+        self.decode = decode
+        self.hmt_transition = hmt_transition
         # id → subword string, for the ▁ word boundaries
         self.token_text = token_text or (lambda i: self.detokenize([i]))
 
@@ -123,6 +128,10 @@ class S2TTAgent(_AgentBase):
         super().reset()
         if hasattr(self, "gate"):
             self.gate.reset()
+        # HMT: the resumable beam state, and the committed prefix it was
+        # seeded with (its beams' tokens continue beyond hmt_base)
+        self.hmt_state = None
+        self.hmt_base: List[int] = []
 
     def _write_budget(self, n_tgt: int) -> int:
         """How many subwords may be written now: ``((n_tgt − k1) //
@@ -135,31 +144,79 @@ class S2TTAgent(_AgentBase):
             total += 1
         return total - len(self.committed_text_ids)
 
+    def _advance_text_hmt(self, states: AgentStates, enc, budget: Optional[int] = None) -> tuple:
+        """The HMT beam's continuation, resumed across policy calls.  Beams
+        (and finished hypotheses) that disagree with the text emitted since
+        the state was seeded are dropped; if none is left the state starts
+        again from the committed text.  What is written is capped at this
+        call's budget while the source is open, and trimmed to whole
+        words."""
+        cfg = self.inf.cfg
+        done_cont = self.committed_text_ids[len(self.hmt_base):]
+        st = self.hmt_state
+        if st is not None and done_cont:
+            keep = [b for b in st.beams if b.tokens[: len(done_cont)] == done_cont]
+            fin = [b for b in st.finished if b.tokens[: len(done_cont)] == done_cont]
+            if keep or fin:
+                st.beams, st.finished = keep, fin
+            else:
+                st = None
+        if st is None:
+            self.hmt_base = list(self.committed_text_ids)
+            done_cont = []
+        max_new = self._max_new(states, budget)
+        if max_new is None:
+            return [], True
+        st = self.inf.continue_text_hmt(enc["enc"], self.hmt_base, src_len=enc["valid_frames"],
+                                        source_finished=bool(states.source_finished), state=st,
+                                        max_new_tokens=max_new, transition=self.hmt_transition)
+        self.hmt_state = st
+        cont = list(st.best().tokens)
+        hit_eos = bool(cont) and cont[-1] == cfg.eos_id
+        if hit_eos:
+            cont = cont[:-1]
+        new_ids = cont[len(done_cont):]
+        if budget is not None and not states.source_finished:
+            # a resumed beam can hold more than this call's budget
+            new_ids = new_ids[: max(0, budget)]
+        return self._commit(states, new_ids), hit_eos
+
     def _advance_text(self, states: AgentStates, enc, budget: Optional[int] = None) -> tuple:
         """Continue the text, shared by S2TT and S2ST: KV-cached greedy
-        decoding, the whole remaining buffer in one call once the source
-        has ended, and whole-word trimming while it is open.  Returns
-        (new ids, whether EOS was reached)."""
-        cfg = self.inf.cfg
-        if states.source_finished:
-            max_new = cfg.max_target_len - 1 - len(self.committed_text_ids)
-            if max_new <= 0:
-                return [], True
-        else:
-            max_new = cfg.max_new_tokens
-            if budget is not None:
-                max_new = min(max_new, budget)
+        decoding or the HMT beam, the whole remaining buffer in one call
+        once the source has ended, and whole-word trimming while it is
+        open.  Returns (new ids, whether EOS was reached)."""
+        if self.decode == "hmt":
+            return self._advance_text_hmt(states, enc, budget=budget)
+        max_new = self._max_new(states, budget)
+        if max_new is None:
+            return [], True
         new_ids = self.inf.continue_text(enc["enc"], self.committed_text_ids, max_new_tokens=max_new,
                                          session=self.dec_session)
-        hit_eos = bool(new_ids) and new_ids[-1] == cfg.eos_id
+        hit_eos = bool(new_ids) and new_ids[-1] == self.inf.cfg.eos_id
         if hit_eos:
             new_ids = new_ids[:-1]
+        return self._commit(states, new_ids), hit_eos
+
+    def _max_new(self, states: AgentStates, budget: Optional[int]) -> Optional[int]:
+        """How many tokens this call may decode: once the source has ended,
+        the whole rest of the buffer (None when nothing is left), else
+        ``max_new_tokens`` capped at the write budget."""
+        cfg = self.inf.cfg
+        if states.source_finished:
+            left = cfg.max_target_len - 1 - len(self.committed_text_ids)
+            return left if left > 0 else None
+        return cfg.max_new_tokens if budget is None else min(cfg.max_new_tokens, budget)
+
+    def _commit(self, states: AgentStates, new_ids: List[int]) -> List[int]:
+        """Trim ``new_ids`` to whole words while the source is open, commit
+        them and return them."""
         if self.whole_words and not states.source_finished and new_ids:
             new_ids = new_ids[: len(trim_to_whole_words([self.token_text(i) for i in new_ids]))]
         if new_ids:
             self.committed_text_ids.extend(new_ids)
             self._debug("st", self.detokenize(new_ids))
-        return new_ids, hit_eos
+        return new_ids
 
     def _gate(self, states: AgentStates, enc):
         """(write?, budget): the CTC-progress gate and the write budget;

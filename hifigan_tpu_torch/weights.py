@@ -14,9 +14,9 @@ Also the S2ST stack's configs as the JAX package's trainers write them
 (``streamspeech_config.json`` with its feature revision,
 ``code_config.json``), and the port's own checkpoints, each one
 ``torch.save`` of configs and state dicts, read strictly: the S2ST pair
-(what ``cli simulate --checkpoint`` reads), the judge encoders and the CTC
-judge (what ``cli eval --encoders`` / ``--asr`` and ``cli eval-clone
---encoders`` read).
+with its training step (what ``cli simulate`` and ``cli eval-s2st``
+``--checkpoint`` read), the judge encoders and the CTC judge (what ``cli
+eval --encoders`` / ``--asr`` and ``cli eval-clone --encoders`` read).
 """
 
 from __future__ import annotations
@@ -163,14 +163,22 @@ def load_code_config(path: str) -> CodeVocoderConfig:
     return CodeVocoderConfig(**d)
 
 
-def save_s2st_checkpoint(path: str, model: StreamSpeechS2ST, code_vocoder: CodeVocoder) -> None:
-    """Write both models' configs and parameters to one ``torch.save`` file."""
+def save_s2st_checkpoint(path: str, model: StreamSpeechS2ST, code_vocoder: CodeVocoder, step: int = 0) -> None:
+    """Write both models' configs and parameters, and the S2ST model's
+    training step, to one ``torch.save`` file."""
     torch.save({
         "streamspeech_config": {**dataclasses.asdict(model.config), "_feature_rev": FEATURE_REV},
         "code_config": dataclasses.asdict(code_vocoder.config),
+        "step": int(step),
         "s2st": model.state_dict(),
         "code_vocoder": code_vocoder.state_dict(),
     }, path)
+
+
+def read_s2st_step(path: str) -> int:
+    """The training step a :func:`save_s2st_checkpoint` file records (0 for
+    a file written without one)."""
+    return int(torch.load(path, map_location="cpu", weights_only=True).get("step", 0))
 
 
 def load_s2st_checkpoint(path: str, device: str | torch.device) -> tuple[StreamSpeechS2ST, CodeVocoder]:

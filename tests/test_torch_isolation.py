@@ -3,7 +3,7 @@
 the entry points (the generator, the vocoder, the train state, ``cli
 train``, the S2ST model, the unit vocoder, the S2ST runtime, ``cli
 simulate``, ``cli eval``, ``cli eval-clone`` and the CTC judge) run on the
-card unless the caller asks for the CPU."""
+card unless the caller asks for the CPU (``cli eval-s2st`` too)."""
 
 import ast
 import subprocess
@@ -33,6 +33,14 @@ def _imported_modules(path):
 def test_source_imports_nothing_of_jax(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_beam_search_is_host_numpy():
+    """The port's own copy of the beam searches imports numpy and the
+    standard library only."""
+    path = ROOT / "hifigan_tpu_torch" / "streaming" / "beam.py"
+    assert path in SOURCES
+    assert set(_imported_modules(path)) == {"__future__", "dataclasses", "typing", "numpy"}
 
 
 def test_import_leaves_jax_unloaded():
@@ -72,18 +80,19 @@ def test_entry_on_cpu_runs_the_flagship():
 
 
 def test_eval_entry_points_without_a_card_raise(monkeypatch, tmp_path):
-    """``cli eval``, ``cli eval-clone``, the CTC judge and the HF
-    transcriber raise before they read or write a file; the judge gate
-    records the error of a candidate it cannot load."""
+    """``cli eval``, ``cli eval-clone``, ``cli eval-s2st``, the CTC judge
+    and the HF transcriber raise before they read or write a file; the
+    judge gate records the error of a candidate it cannot load."""
     from hifigan_tpu_torch.eval import asr
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["eval", "--tiny", "--checkpoint_dir", str(tmp_path / "ckpt")],
                  ["eval-clone", "--tiny", "--checkpoint_dir", str(tmp_path / "ckpt"),
-                  "--encoders", str(tmp_path / "enc.pt")]):
+                  "--encoders", str(tmp_path / "enc.pt")],
+                 ["eval-s2st", "--checkpoint", str(tmp_path / "s2st.pt"), "--output", str(tmp_path / "r.json")]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv)
-    assert not (tmp_path / "ckpt").exists()
+    assert not (tmp_path / "ckpt").exists() and not (tmp_path / "r.json").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         asr.CTCTranscriber(str(tmp_path / "judge.pt"))
     with pytest.raises(RuntimeError, match="no CUDA device"):

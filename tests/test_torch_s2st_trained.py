@@ -4,7 +4,9 @@ of ``runs/unit_vocoder/16000``, each restored once through the JAX
 package's trainers' state and ``CheckpointManager`` and carried into the
 port by ``load_jax_params``; then one ``S2STAgent`` session on a held-out
 ``FormantSpeechCorpus`` utterance, as JAX's ``cli simulate`` runs the
-trained stack.  Skips, naming the path, if a checkpoint is missing."""
+trained stack, and one ``hmt_learned`` ``S2TTAgent`` session (the trained
+transition head as the READ/WRITE gate, as ``cli eval-s2st``'s
+``hmt_learned`` row).  Skips, naming the path, if a checkpoint is missing."""
 
 import json
 import subprocess
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_generator import _gen
+from test_torch_hmt import _equal_or_near_tie, _Tape
 from test_torch_s2st import assert_within
 
 from hifigan_tpu_torch.models.code_vocoder import CodeVocoder
@@ -150,6 +153,31 @@ def test_trained_s2st_session_equals_jax(stacks, utterance):
         assert g.finished == w.finished
         assert_within(g.samples, w.samples, 1e-4, "trained speech segment")
     assert got.average_lagging_ms == want.average_lagging_ms
+
+
+def test_trained_hmt_learned_session_equals_jax(stacks, utterance, monkeypatch):
+    """One ``S2TTAgent(decode="hmt", hmt_transition="learned")`` session
+    over the utterance in 320 ms segments: the same writes at the same
+    source times and the same committed ids, which write before the source
+    ends, where the margins allow (``test_torch_hmt``'s rule: the runs may
+    part only after a KV step whose closest decision lies within 10× the
+    measured float error)."""
+    jinf, tinf = stacks
+    from hifigan_tpu.streaming import agents as jagents
+    from hifigan_tpu.streaming import harness as jharness
+    from hifigan_tpu.streaming import runtime as jrt
+
+    jtape, ttape = _Tape(monkeypatch, jrt), _Tape(monkeypatch, trt)
+    kw = dict(decode="hmt", hmt_transition="learned")
+    jagent, tagent = jagents.S2TTAgent(jinf, **kw), tagents.S2TTAgent(tinf, **kw)
+    want = jharness.run_streaming_session(jagent, utterance, segment_size_ms=320)
+    got = tharness.run_streaming_session(tagent, utterance, segment_size_ms=320)
+    equal = (got.emission_source_seconds == want.emission_source_seconds
+             and tagent.committed_text_ids == jagent.committed_text_ids
+             and [s.content for s in got.outputs] == [s.content for s in want.outputs])
+    if _equal_or_near_tie("trained hmt_learned session", equal, jtape, ttape):
+        assert tagent.committed_text_ids and got.average_lagging_ms == want.average_lagging_ms
+        assert any(t < got.source_seconds for t in got.emission_source_seconds)
 
 
 def test_trained_checkpoints_stay_unchanged(stacks):

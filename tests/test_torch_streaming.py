@@ -4,8 +4,8 @@ decode, policy and harness copies, the KV-cached decoder (against the full
 decoder, and through a retraction and an idempotent re-step), and whole
 sessions of every agent over the same audio, which must commit the same
 token and unit ids, with the same durations, at the same source times, and
-emit the same waveform within 1e-4.  Also ``cli simulate`` on the CPU and
-the greedy-only rule.
+emit the same waveform within 1e-4.  Also ``cli simulate`` on the CPU.
+The HMT decoding's sessions are ``test_torch_hmt.py``'s.
 
 Weights: the decoder's every leaf is redrawn by ``_randomise``.  The
 sessions' S2ST model is the JAX initialisers' draw with every leaf moved by
@@ -18,7 +18,6 @@ vocoder is ``_code_pair``'s (``_randomise`` with its durations spread)."""
 import json
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -292,15 +291,15 @@ def test_s2tt_drains_in_one_call_at_the_end_of_the_source(inference_pair):
     assert len(actions[0][3]) > INFERENCE["max_new_tokens"] and actions[0][2]
 
 
-def test_hmt_decoding_raises():
-    for cls in (tagents.S2TTAgent, tagents.S2STAgent):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            cls(None, decode="hmt")
-
-
 def test_cli_simulate_on_the_cpu(capsys, tmp_path):
     """``cli simulate --tiny --device cpu`` prints JAX's summary keys, and
-    ``--checkpoint`` with the same models saved gives the same session."""
+    ``--checkpoint`` with the same models saved gives the same session on
+    the same WAV (its text detokenised to phone names, as JAX's trained
+    stack's); without ``--audio`` it reads the held-out formant utterance
+    of ``--seed``, as JAX's ``cmd_simulate`` does for a trained stack."""
+    from hifigan_tpu_torch.eval.asr_bleu import write_wav
+    from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
+
     cli.main(["simulate", "--tiny", "--device", "cpu"])
     tiny = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(tiny) == {"agent", "source_seconds", "writes", "text", "output_samples", "average_lagging_ms",
@@ -310,6 +309,14 @@ def test_cli_simulate_on_the_cpu(capsys, tmp_path):
     from hifigan_tpu_torch.entry import build_s2st_inference
     inf = build_s2st_inference(*cli._tiny_s2st_configs(), device="cpu")
     save_s2st_checkpoint(str(tmp_path / "s2st.pt"), inf.model, inf.code_vocoder)
-    cli.main(["simulate", "--checkpoint", str(tmp_path / "s2st.pt"), "--device", "cpu"])
-    restored = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert {k: v for k, v in restored.items() if k != "wall_s"} == {k: v for k, v in tiny.items() if k != "wall_s"}
+    write_wav(str(tmp_path / "in.wav"), SyntheticSpeechDataset(segment_samples=16000)[0])
+    runs = []
+    for models in (["--tiny"], ["--checkpoint", str(tmp_path / "s2st.pt")]):
+        cli.main(["simulate", *models, "--device", "cpu", "--audio", str(tmp_path / "in.wav")])
+        runs.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    assert {k: v for k, v in runs[1].items() if k not in ("wall_s", "text")} == {
+        k: v for k, v in runs[0].items() if k not in ("wall_s", "text")}
+    cli.main(["simulate", "--checkpoint", str(tmp_path / "s2st.pt"), "--device", "cpu", "--seed", "3"])
+    held_out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    audio = FormantSpeechCorpus(n_speakers=32).utterance(3, 0, content=2_000_003)
+    assert held_out["source_seconds"] == len(audio) / 16000 and held_out["writes"] > 1
