@@ -57,7 +57,7 @@ Phases, each printing its own line:
      a second session, its wall time and real-time factor, the median wall
      time of each program at the buckets the session hit, and peak memory;
   9. evaluation: `cli eval` and `cli eval-clone` through cli.main, fp32,
-     TF32 off, over files written to a temporary directory (a train-state
+     TF32 turned on before each command (which must turn it off), over files written to a temporary directory (a train-state
      checkpoint of create_train_state(TrainConfig()) with the generator
      redrawn, the judge encoders at EncoderTrainConfig() widths and a CTC
      judge at runs/asr_judge's config, both seeded): cli eval over 4
@@ -84,9 +84,30 @@ Phases, each printing its own line:
      then the wall time and real-time factor of an HMT session of each
      gate over the S2ST phase's 5 s of source, the KV HMT step's and the
      beam step's median time, the command's wall time and peak memory;
- 11. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
-     calls, 3 train steps, one S2ST session, one HMT session (learned gate)
-     and 10 of eval-clone's cloning calls: the device's busy share of the
+ 11. training pipeline: `cli train-encoders` at EncoderTrainConfig()
+     (ECAPA-TDNN 512, Emotion2Vec 3 x 256 x 4 heads, 32 x 16384 samples a
+     step, fp32) for 2 + 3 steps from the seeded state (finite losses,
+     parameters that change, no GRC launch, encoders.pt written and read
+     back); one fp32 encoder step on the card against the CPU at batch 4
+     (losses within 1e-4 relative; gradients within 2e-2 of each leaf's
+     peak and 1e-2 in L2: ReLU decisions flip within the devices' fp32
+     difference, PIPE_GRAD_FRAC says more); `cli train-clone --bf16` at TrainConfig() with the extractor at
+     the encoders' widths (16 x 8192-sample pairs, 16384-sample references)
+     grafting step 1's encoders, the identity hinge of its frozen judge, for
+     2 + 3 steps logged each (finite losses, the probe's probe_eval_cos and
+     probe_verified, no GRC launch in a train step and 9 grc_step_bf16 a
+     probe call, the probe's kernel path against its plain path); one
+     identity_finetune step (the trunk bit for bit, extractor and FiLM
+     parameters moved); `cli train --dataset formant --device_data --bf16`
+     for 2 steps; each step's CUDA-event time as the commands run it,
+     audio-seconds trained a second and peak memory.  Only counts are cut:
+     2 utterances a speaker, 2 contents, 16 formant utterances, the steps.
+     Every cli.main call of phases 9-11 runs with TF32 turned on before it
+     and must leave it off;
+ 12. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
+     calls, 3 train steps, one S2ST session, one HMT session (learned gate),
+     10 of eval-clone's cloning calls and one cloning train step
+     (train-clone's, identity hinge included): the device's busy share of the
      window, launches per call (and per policy call of the sessions), the
      call's peak device memory and device time per kernel family
      (attention, the convolutions' backward, FFT and the optimiser each its
@@ -109,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -140,7 +162,20 @@ from hifigan_tpu_torch.train.checkpoint import CheckpointManager
 from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
 from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
 from hifigan_tpu_torch.train.device_data import build_audio_bank, make_device_sampler
-from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, build_models
+from hifigan_tpu_torch.train.cloning import (
+    build_cloning_banks,
+    is_conditioning,
+    make_cloning_train_step,
+    make_pair_sampler,
+)
+from hifigan_tpu_torch.train.encoder_pretrain import (
+    EncoderTrainConfig,
+    build_labelled_bank,
+    build_models,
+    create_encoder_state,
+    make_encoder_sampler,
+    make_encoder_train_step,
+)
 from hifigan_tpu_torch.weights import (
     load_encoder_checkpoint,
     read_s2st_step,
@@ -209,10 +244,51 @@ HMT_SAMPLES, HMT_POLICIES = 2, ("offline_greedy", "stride1_greedy", "hmt_confide
 EVAL_S2ST_REPORT_KEYS = {"checkpoint_dir", "restored_step", "policies", "asr_judge"}
 HMT_WRITE_THRESHOLD = 0.5  # continue_text_hmt's default
 
+# The training-pipeline phase: cli train-encoders at EncoderTrainConfig()
+# (ECAPA-TDNN 512, Emotion2Vec 3 x 256 x 4 heads, 32 x 16384 samples a step,
+# fp32), cli train-clone at TrainConfig() with the extractor at those widths
+# (16 x 8192-sample pairs, 16384-sample references, bf16, the identity
+# hinge), one identity_finetune step and cli train --dataset formant
+# --device_data (16 x 8192, bf16).  Counts cut for the time limit only: the
+# labelled bank's utterances per speaker (JAX 12), the cloning banks'
+# contents (JAX 32), the formant dataset's size (JAX 512) and the steps.
+PIPE_UTTERANCES, PIPE_CONTENTS, PIPE_DATASET_SIZE = 2, 2, 16
+PIPE_WARMUP, PIPE_TIMED, PIPE_FORMANT_STEPS = 2, 3, 2
+PIPE_CHECK_BATCH = 4  # the fp32 encoder step, card against CPU
+# A judge trained 5 steps maps every clip to nearly one embedding (cosines
+# near 1): at JAX's margin 0.8 the hinge would be silent, at 1.0 its
+# gradient runs through the judge in every step.
+PIPE_IDENTITY_MARGIN = 1.0
+# The fp32 encoder step's gradients, card against CPU.  The losses agree to
+# 1e-7, but the two devices' fp32 forwards differ by about 1e-5 of each
+# activation's peak (cuBLAS and cuDNN against the CPU's summation order), and
+# a ReLU whose input lies within that difference passes a gradient on one
+# device and not on the other: at the seeded draw ECAPA-TDNN's zero-bias
+# ReLUs flip, and the leaves behind them differ by up to 0.77% of their peak
+# and 0.29% in L2 (measured, NVIDIA H100 80GB HBM3, 700 W, two seeds; more
+# than half the leaves above 1e-4 of their peak).  So each leaf is held to
+# PIPE_GRAD_FRAC of its peak and PIPE_GRAD_L2 in L2, the ZERO_GRADIENT
+# leaves (rounding noise) to PIPE_ZERO_FLOOR of the model's peak.
+PIPE_GRAD_FRAC, PIPE_GRAD_L2, PIPE_GRAD_FLOOR, PIPE_ZERO_FLOOR = 2e-2, 1e-2, 1e-7, 1e-6
+ZERO_GRADIENT = ("asp.att2.bias", ".mha.k.bias")  # a bias before a softmax along which it is constant
+
 # The eval sample's metrics on the card against the CPU (TF32 off; the card
 # runs the fp32 kernel, the CPU the plain chain): SIM is a cosine of unit
 # embeddings; mel-L1 and MCD are relative to their value.
 EVAL_SIM_TOL, EVAL_REL_TOL = 1e-4, 1e-3
+
+
+def _cli(argv: list) -> None:
+    """``cli.main(argv)`` as a user runs it: TF32 on in cuDNN and cuBLAS
+    first (cuDNN's is PyTorch's default), and the command must leave both
+    off, so that the checks of its fp32 results see TF32 if the command
+    ever ran with it."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cli.main(argv)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"cli {argv[0]} left TF32 on (cuDNN {torch.backends.cudnn.allow_tf32}, cuBLAS "
+                             f"{torch.backends.cuda.matmul.allow_tf32})")
 
 
 def _time_ms(fn, runs: int = RUNS) -> float:
@@ -824,7 +900,7 @@ def _check_eval(files: dict, directory: str) -> dict:
     _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):  # its summary line; the report is the file
-        cli.main(["eval", "--device", "cuda", "--checkpoint_dir", files["ckpt"], "--encoders", files["encoders"],
+        _cli(["eval", "--device", "cuda", "--checkpoint_dir", files["ckpt"], "--encoders", files["encoders"],
                   "--asr", files["judge"], "--samples", str(EVAL_SAMPLES), "--output", out])
     wall_s = time.perf_counter() - t0
     launches = dict(grc_kernel.launches)
@@ -896,7 +972,7 @@ def _check_eval_clone(files: dict, directory: str) -> dict:
     _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):  # its summary; the report is the file
-        cli.main(["eval-clone", "--device", "cuda", "--checkpoint_dir", files["ckpt"], "--encoders",
+        _cli(["eval-clone", "--device", "cuda", "--checkpoint_dir", files["ckpt"], "--encoders",
                   files["encoders"], "--n_speakers", str(EVAL_CLONE_SPEAKERS), "--n_contents",
                   str(EVAL_CLONE_CONTENTS), "--output", out])
     wall_s = time.perf_counter() - t0
@@ -933,6 +1009,238 @@ def _check_eval_clone(files: dict, directory: str) -> dict:
                              "the conditioning path is not live")
     return {"report": report, "launches": launches, "calls": calls, "wall_s": wall_s, "kernel_err": kernel_err,
             "moved": moved, "content_mel": content_mel, "ref_mel": ref_mel}
+
+
+@contextlib.contextmanager
+def _timed_steps(module, factory: str, record: list):
+    """Wrap ``module.factory`` so that every step it makes records its
+    CUDA-event time, the GRC launches inside it and the state it ran on,
+    as the commands that build their step through it run it."""
+    real = getattr(module, factory)
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(state, *a, **kw):
+            before = dict(grc_kernel.launches)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, *a, **kw)
+            end.record()
+            end.synchronize()
+            record.append({"ms": start.elapsed_time(end), "state": state,
+                           "launches": {k: v - before[k] for k, v in grc_kernel.launches.items()}})
+            return out
+
+        return timed
+
+    setattr(module, factory, make)
+    try:
+        yield
+    finally:
+        setattr(module, factory, real)
+
+
+def _metrics_rows(directory: str) -> list:
+    with open(f"{directory}/metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_encoder_step_on_cpu(bank: tuple) -> dict:
+    """One fp32 encoder step of EncoderTrainConfig() at PIPE_CHECK_BATCH on
+    the card against the same step on the CPU, from the same seeded state
+    on the same crops, TF32 off (as the CLI left it): every loss within 1e-4
+    relative, the accuracies equal, every gradient within PIPE_GRAD_FRAC of
+    its leaf's max |g| plus PIPE_GRAD_FLOOR of its model's and within
+    PIPE_GRAD_L2 of its leaf's norm (the ZERO_GRADIENT leaves: within
+    PIPE_ZERO_FLOOR of the model's max |g|).  Also counted: the leaves whose
+    worst error is above 1e-4 of their peak."""
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on before the fp32 encoder check")
+    cfg = replace(EncoderTrainConfig(), batch_size=PIPE_CHECK_BATCH)
+    states = {dev: create_encoder_state(cfg, torch.float32, dev, seed=1) for dev in ("cuda", "cpu")}
+    audio, lengths, speakers, bins = bank
+    batch = make_encoder_sampler(cfg, *(torch.from_numpy(a) for a in (lengths, speakers, bins)))(
+        torch.Generator().manual_seed(2), torch.from_numpy(audio))
+    metrics = {dev: {k: float(v) for k, v in make_encoder_train_step(
+        cfg, torch.from_numpy(audio).to(dev), lengths, speakers, bins)(st, batch)[1].items()}
+        for dev, st in states.items()}
+    loss_err = max(abs(metrics["cuda"][k] - metrics["cpu"][k]) / max(abs(metrics["cpu"][k]), 1e-12)
+                   for k in metrics["cpu"] if "loss" in k or "cos" in k)
+    acc_equal = all(metrics["cuda"][k] == metrics["cpu"][k] for k in metrics["cpu"] if "acc" in k)
+    worst = {"max_share": 0.0, "max_leaf": "", "l2": 0.0, "l2_leaf": "", "over_1e-4": 0, "leaves": 0}
+    grad = lambda p: torch.zeros_like(p) if p.grad is None else p.grad  # noqa: E731  (the head's bias takes none)
+    for model in ("ecapa", "emo"):
+        cpu = {n: grad(p) for n, p in getattr(states["cpu"], model).named_parameters()}
+        top = max(float(g.abs().max()) for g in cpu.values())
+        for name, p in getattr(states["cuda"], model).named_parameters():
+            want, err = cpu[name], grad(p).cpu() - cpu[name]
+            peak, max_err = float(want.abs().max()), float(err.abs().max())
+            worst["leaves"] += 1
+            if name.endswith(ZERO_GRADIENT):
+                if max_err > PIPE_ZERO_FLOOR * top:
+                    raise AssertionError(f"{model}.{name}: gradient err {max_err:.3g} > {PIPE_ZERO_FLOOR} of {top:.3g}")
+                continue
+            share = max_err / (PIPE_GRAD_FRAC * peak + PIPE_GRAD_FLOOR * top)
+            l2 = float(err.norm() / want.norm().clamp_min(1e-30))
+            worst["over_1e-4"] += max_err > 1e-4 * peak
+            if share > worst["max_share"]:
+                worst.update(max_share=share, max_leaf=f"{model}.{name}", max_rel=max_err / max(peak, 1e-30))
+            if l2 > worst["l2"]:
+                worst.update(l2=l2, l2_leaf=f"{model}.{name}")
+    if loss_err > 1e-4 or not acc_equal or worst["max_share"] > 1 or worst["l2"] > PIPE_GRAD_L2:
+        raise AssertionError(f"the fp32 encoder step on the card differs from the CPU's: {metrics} (loss rel err "
+                             f"{loss_err:.3g}), gradients {worst}")
+    return {"loss_err": loss_err, "grads": worst, "metrics": metrics["cuda"]}
+
+
+def _check_pipeline(directory: str) -> dict:
+    """The voice-cloning training pipeline on the card, through ``cli.main``
+    as a user runs it (TF32 turned on before each command, off after it).
+
+    1. ``cli train-encoders`` at EncoderTrainConfig() for PIPE_WARMUP +
+       PIPE_TIMED steps from the seeded state: every logged loss finite,
+       no GRC launch, more than 90% of the parameter tensors changed,
+       ``encoders.pt`` written and read back by ``load_encoder_checkpoint``.
+    2. :func:`_check_encoder_step_on_cpu`.
+    3. ``cli train-clone --bf16 --encoders <1's file> --identity_encoders
+       <1's file> --identity_weight 1 --identity_margin
+       PIPE_IDENTITY_MARGIN`` at TrainConfig() for PIPE_WARMUP +
+       PIPE_TIMED steps, logging every step: finite losses,
+       ``identity_loss`` among them and above 0, ``probe_eval_cos`` and
+       ``probe_verified`` on every row; no GRC launch inside a train step
+       and 9 ``grc_step_bf16`` launches for each probe call (counted from 0
+       just before the command); the probe's waveforms on the kernel path
+       within 4 bf16 ulps of the peak of the plain path's.
+    4. One ``identity_finetune`` step (the centroid hinge) on that state:
+       every parameter outside the extractor and the FiLM layers bit for
+       bit as before; at least one extractor and one FiLM parameter moved.
+    5. ``cli train --dataset formant --dataset_size PIPE_DATASET_SIZE
+       --device_data --bf16`` for PIPE_FORMANT_STEPS steps: finite losses.
+    The step times are CUDA events around each step as the commands run
+    it; the probe, logging and checkpoints fall outside them."""
+    import os
+
+    from hifigan_tpu_torch.train import cloning as cloning_mod
+    from hifigan_tpu_torch.train import encoder_pretrain as encoder_mod
+
+    enc_dir, clone_dir, formant_dir = (f"{directory}/{d}" for d in ("encoders", "clone", "formant"))
+    seeded = create_encoder_state(EncoderTrainConfig(), torch.float32, "cuda", seed=0)
+    start = {m: {n: p.detach().clone() for n, p in getattr(seeded, m).named_parameters()} for m in ("ecapa", "emo")}
+    del seeded
+    enc_steps = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _timed_steps(encoder_mod, "make_fused_encoder_step", enc_steps):
+        _cli(["train-encoders", "--device", "cuda", "--checkpoint_dir", enc_dir, "--utterances_per_speaker",
+              str(PIPE_UTTERANCES), "--max_steps", str(PIPE_WARMUP + PIPE_TIMED), "--log_every", "1"])
+    enc_wall = time.perf_counter() - t0
+    enc_launches = dict(grc_kernel.launches)
+    enc_rows = _metrics_rows(enc_dir)
+    enc_state = enc_steps[-1]["state"]
+    changed = {m: sum(not torch.equal(p.detach(), start[m][n]) for n, p in getattr(enc_state, m).named_parameters())
+               for m in start}
+    if (len(enc_rows) != PIPE_WARMUP + PIPE_TIMED or any(enc_launches.values())
+            or not all(math.isfinite(v) for r in enc_rows for v in r.values())):
+        raise AssertionError(f"cli train-encoders: rows {enc_rows}, GRC launches {enc_launches}")
+    if any(n <= 0.9 * len(start[m]) for m, n in changed.items()):
+        raise AssertionError(f"cli train-encoders changed only {changed} of {[len(v) for v in start.values()]} tensors")
+    enc_cfg, _, _, enc_step = load_encoder_checkpoint(f"{enc_dir}/encoders.pt", "cuda")
+    if enc_cfg != EncoderTrainConfig() or enc_step != PIPE_WARMUP + PIPE_TIMED:
+        raise AssertionError(f"encoders.pt holds {enc_cfg} at step {enc_step}")
+    enc_ms = [r["ms"] for r in enc_steps]
+    del enc_state, enc_steps
+
+    bank = build_labelled_bank(n_speakers=EncoderTrainConfig().n_speakers, utterances_per_speaker=PIPE_UTTERANCES)
+    enc_check = _check_encoder_step_on_cpu(bank)
+
+    clone_steps, probes = [], []
+    real_probe = cloning_mod.CloningProbe
+
+    class RecordedProbe(real_probe):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            probes.append(self)
+
+    os.environ["HIFIGAN_TPU_CACHE"] = directory
+    cloning_mod.CloningProbe = RecordedProbe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with _timed_steps(cloning_mod, "make_cloning_train_step", clone_steps):
+            _cli(["train-clone", "--device", "cuda", "--bf16", "--checkpoint_dir", clone_dir, "--encoders",
+                  f"{enc_dir}/encoders.pt", "--identity_encoders", f"{enc_dir}/encoders.pt", "--identity_weight", "1",
+                  "--identity_margin", str(PIPE_IDENTITY_MARGIN), "--n_contents", str(PIPE_CONTENTS), "--max_steps", str(PIPE_WARMUP + PIPE_TIMED),
+                  "--log_every", "1"])
+    finally:
+        cloning_mod.CloningProbe = real_probe
+    torch.cuda.synchronize()
+    clone_wall = time.perf_counter() - t0
+    clone_peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    clone_launches = dict(grc_kernel.launches)
+    clone_rows = _metrics_rows(clone_dir)
+    n_steps = PIPE_WARMUP + PIPE_TIMED
+    step_launches = [r["launches"] for r in clone_steps]
+    if len(clone_rows) != n_steps or not all(
+            {"identity_loss", "identity_cos", "probe_eval_cos", "probe_verified"} <= set(r) and r["identity_loss"] > 0
+            and all(math.isfinite(v) for v in r.values()) for r in clone_rows):
+        raise AssertionError(f"cli train-clone's metrics: {clone_rows}")
+    if any(any(d.values()) for d in step_launches) or clone_launches != {"grc_step_bf16": 9 * n_steps,
+                                                                        "grc_step_f32": 0}:
+        raise AssertionError(f"cli train-clone launched the GRC kernels {clone_launches} ({step_launches} inside the "
+                             f"train steps): expected none in the steps and 9 grc_step_bf16 in each of the "
+                             f"{n_steps} probe calls")
+    probe, state = probes[0], clone_steps[-1]["state"]
+    wav = probe.waveform(state.vocoder)
+    plain = probe.waveform(state.vocoder, step=grc_kernel.grc_step_reference)
+    probe_err, probe_tol = float((wav - plain).abs().max()), 4 * 2.0 ** -8 * float(plain.abs().max())
+    if probe_err > probe_tol or not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"the probe's kernel path differs from its plain path by {probe_err:.3g} > {probe_tol:.3g}")
+
+    # train-clone's config: its default loss weights (the STFT term on), the
+    # extractor at the encoders' widths
+    ecfg = EncoderTrainConfig()
+    cfg = replace(TrainConfig(), loss_weights=replace(TrainConfig().loss_weights, multi_res_stft=1.0),
+                  ecapa_channels=ecfg.ecapa_channels, emo_hidden=ecfg.emo_hidden, emo_layers=ecfg.emo_layers,
+                  emo_heads=ecfg.emo_heads)
+    content, ref, lengths = build_cloning_banks(n_speakers=32, n_contents=PIPE_CONTENTS,
+                                                cache_path=cloning_mod.default_cache_path())
+    os.environ.pop("HIFIGAN_TPU_CACHE")
+    content, ref = torch.from_numpy(content).cuda(), torch.from_numpy(ref).cuda()
+    sampler = make_pair_sampler(torch.from_numpy(lengths).cuda(), 8192, 16384, 16)
+    finetune = make_cloning_train_step(cfg, sampler, identity_fn=probe.judge, identity_weight=1.0,
+                                       identity_centroids=probe.centroids_seg, identity_finetune=True)
+    before = {n: p.detach().clone() for n, p in state.vocoder.named_parameters()}
+    _reset_launches()
+    finetune(state, torch.Generator(device="cuda").manual_seed(3), content, ref)
+    moved = {n for n, p in state.vocoder.named_parameters() if not torch.equal(p.detach(), before[n])}
+    trunk = [n for n in before if not is_conditioning(n)]
+    if (moved & set(trunk) or not any(n.startswith("embedding_extractor.") for n in moved)
+            or not any("film_" in n for n in moved) or any(grc_kernel.launches.values())):
+        raise AssertionError(f"identity_finetune moved trunk parameters {sorted(moved & set(trunk))[:5]} or no "
+                             f"extractor / FiLM parameter ({len(moved)} moved)")
+    del before
+
+    _reset_launches()
+    _cli(["train", "--device", "cuda", "--bf16", "--dataset", "formant", "--dataset_size", str(PIPE_DATASET_SIZE),
+          "--device_data", "--max_steps", str(PIPE_FORMANT_STEPS), "--log_every", "1", "--checkpoint_dir",
+          formant_dir])
+    formant_rows = _metrics_rows(formant_dir)
+    with open(f"{formant_dir}/training_summary.json") as f:
+        summary = json.load(f)
+    if (len(formant_rows) != PIPE_FORMANT_STEPS or summary["data"] != "formant" or any(grc_kernel.launches.values())
+            or not all(math.isfinite(v) for r in formant_rows for v in r.values())):
+        raise AssertionError(f"cli train --dataset formant: {formant_rows}, summary data {summary['data']}")
+    return {"enc_rows": enc_rows, "enc_ms": enc_ms, "enc_wall": enc_wall,
+            "changed": changed, "enc_check": enc_check, "clone_rows": clone_rows,
+            "clone_ms": [r["ms"] for r in clone_steps], "clone_wall": clone_wall, "clone_peak_mib": clone_peak_mib,
+            "clone_launches": clone_launches, "probe_err": probe_err, "probe_tol": probe_tol,
+            "moved": len(moved), "trunk": len(trunk), "formant_rows": formant_rows, "state": state,
+            "banks": (content, ref), "step": make_cloning_train_step(cfg, sampler, identity_fn=probe.judge, identity_weight=1.0,
+                                            identity_centroids=probe.centroids_seg)}
 
 
 def _hmt_stacks() -> tuple[S2STInference, S2STInference]:
@@ -1099,7 +1407,7 @@ def _check_eval_s2st(card: S2STInference, directory: str) -> dict:
     _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):  # its report line; the report is the file
-        cli.main(["eval-s2st", "--device", "cuda", "--checkpoint", paths["s2st"], "--asr", paths["judge"],
+        _cli(["eval-s2st", "--device", "cuda", "--checkpoint", paths["s2st"], "--asr", paths["judge"],
                   "--samples", str(HMT_SAMPLES), "--policies", ",".join(HMT_POLICIES), "--output", paths["out"]])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1422,7 +1730,8 @@ def main() -> int:
           "a call: " + json.dumps({k: round(v, 3) for k, v in s2st_timing["programs_ms"].items()}))
 
     # 9. evaluation: cli eval and cli eval-clone through cli.main, fp32 (TF32
-    # off), checked and timed before any trace
+    # on before each command, which turns it off), checked and timed before
+    # any trace
     with tempfile.TemporaryDirectory() as directory:
         files = _write_eval_files(directory)
         ev = _check_eval(files, directory)
@@ -1484,7 +1793,39 @@ def main() -> int:
           f"step ({HMT_BEAM_STEP_ROWS} rows) {hmt_timing['beam_step_ms']:.3f} ms; cli eval-s2st {es['wall_s']:.2f} s "
           f"wall, peak device memory {es['peak_mib']:.1f} MiB above what was held before it")
 
-    # 11. traces: where the device time goes, in the forward, the cloning call,
+    # 11. the voice-cloning training pipeline: cli train-encoders, cli
+    # train-clone (with the probe), an identity_finetune step and cli train on
+    # the formant corpus, through cli.main, checked and timed before any trace
+    with tempfile.TemporaryDirectory() as directory:
+        pipe = _check_pipeline(directory)
+    enc_ms = statistics.median(pipe["enc_ms"][PIPE_WARMUP:])
+    clone_ms = statistics.median(pipe["clone_ms"][PIPE_WARMUP:])
+    ecfg = EncoderTrainConfig()
+    last = {k: float(f"{v:.4g}") for k, v in pipe["clone_rows"][-1].items() if k not in ("step", "wall_s")}
+    print(f"pipeline: cli train-encoders EncoderTrainConfig() fp32 ({ecfg.batch_size} x {ecfg.segment_samples} "
+          f"samples a step, {PIPE_UTTERANCES} utterances a speaker): losses finite "
+          + json.dumps([{k: round(v, 4) for k, v in r.items() if "loss" in k} for r in pipe["enc_rows"]])
+          + f", parameter tensors changed {pipe['changed']}, encoders.pt read back, 0 GRC launches; fp32 encoder "
+          f"step card vs CPU at batch {PIPE_CHECK_BATCH}: max loss rel err {pipe['enc_check']['loss_err']:.3g} (tol "
+          f"1e-4), gradients (tol {PIPE_GRAD_FRAC} of each leaf's peak, {PIPE_GRAD_L2} in L2) "
+          + json.dumps({k: (float(f"{v:.3g}") if isinstance(v, float) else v) for k, v in pipe["enc_check"]["grads"].items()})
+          + "; cli train-clone bf16 "
+          f"(TrainConfig(), extractor at the encoders' widths, identity hinge weight 1 margin {PIPE_IDENTITY_MARGIN}, {PIPE_CONTENTS} contents): "
+          f"GRC launches {pipe['clone_launches']} (0 in the train steps, 9 a probe call), probe kernel vs plain "
+          f"path max err {pipe['probe_err']:.3g} (tol {pipe['probe_tol']:.3g}), last row {json.dumps(last)}; "
+          f"identity_finetune: {pipe['moved']} conditioning tensors moved, {pipe['trunk']} trunk tensors bit for bit; "
+          f"cli train --dataset formant --device_data bf16: losses finite "
+          + json.dumps([round(r["generator_loss"], 4) for r in pipe["formant_rows"]]))
+    clone_audio_s = 16 * 8192 / 16000
+    print(f"timing_pipeline: {smi.stdout.strip().splitlines()[0]}; train-encoders step median {enc_ms:.3f} ms over "
+          f"{PIPE_TIMED} after {PIPE_WARMUP} ({json.dumps([round(t, 3) for t in pipe['enc_ms']])} ms), "
+          f"{ecfg.batch_size * ecfg.segment_samples / 16000 / enc_ms * 1e3:.1f} audio-s trained a second, command "
+          f"{pipe['enc_wall']:.2f} s wall; train-clone step median {clone_ms:.3f} ms "
+          f"({json.dumps([round(t, 3) for t in pipe['clone_ms']])} ms), {clone_audio_s / clone_ms * 1e3:.1f} audio-s "
+          f"trained a second, command {pipe['clone_wall']:.2f} s wall, peak device memory "
+          f"{pipe['clone_peak_mib']:.1f} MiB above what was held before it")
+
+    # 12. traces: where the device time goes, in the forward, the cloning call,
     # a train step and an S2ST session.  Last, after every timing: once the
     # profiler has traced the card, the host's launches may stay slower.
     with torch.no_grad():
@@ -1511,6 +1852,14 @@ def main() -> int:
     with torch.no_grad():
         print("trace: " + json.dumps({"call": "eval_clone_call", **_trace(
             lambda: eval_vocoder(clone_ev["content_mel"], reference_mel=clone_ev["ref_mel"]))}))
+    _reset_launches()
+    content, ref = pipe["banks"]
+    clone_gen = torch.Generator(device="cuda").manual_seed(4)
+    clone_trace = _trace(lambda: pipe["step"](pipe["state"], clone_gen, content, ref), calls=1)
+    if any(grc_kernel.launches.values()):
+        raise AssertionError(f"the traced cloning train step launched the GRC kernels {grc_kernel.launches}")
+    print("trace: " + json.dumps({"call": "cloning_train_step", **clone_trace}))
+    del pipe
     with torch.no_grad():
         after_ms = _time_ms(lambda: model(mel, spk, emo))
     print(f"timing_after_trace: the bf16 forward again, after the profiler: {after_ms:.3f} ms (before it, "

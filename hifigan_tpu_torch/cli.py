@@ -1,8 +1,12 @@
-"""Command-line interface of the port: ``train``, ``eval``, ``eval-clone``,
-``eval-s2st`` and ``simulate``.
+"""Command-line interface of the port: ``train``, ``train-encoders``,
+``train-clone``, ``eval``, ``eval-clone``, ``eval-s2st`` and ``simulate``.
 
     python -m hifigan_tpu_torch.cli train --max_steps 1000 --checkpoint_dir ckpt [--bf16]
     python -m hifigan_tpu_torch.cli train --tiny --device cpu --max_steps 2 --checkpoint_dir /tmp/t
+    python -m hifigan_tpu_torch.cli train --dataset formant --dataset_size 512 --device_data [--config c.json]
+    python -m hifigan_tpu_torch.cli train --data_dir wavs/ --augment
+    python -m hifigan_tpu_torch.cli train-encoders --checkpoint_dir enc [--spk_pair_weight 0.5]
+    python -m hifigan_tpu_torch.cli train-clone --checkpoint_dir clone --encoders enc/encoders.pt [--init_from ckpt]
     python -m hifigan_tpu_torch.cli eval [--checkpoint_dir ckpt] [--encoders enc.pt] [--asr judge.pt]
     python -m hifigan_tpu_torch.cli eval --tiny --device cpu
     python -m hifigan_tpu_torch.cli eval-clone --checkpoint_dir ckpt --encoders enc.pt
@@ -10,16 +14,24 @@
     python -m hifigan_tpu_torch.cli simulate --agent s2st [--audio in.wav] [--checkpoint s2st.pt]
     python -m hifigan_tpu_torch.cli simulate --tiny --device cpu [--decode hmt --hmt_transition learned]
 
-Counterpart of ``hifigan_tpu/cli.py``'s ``train``, ``eval``,
-``eval-clone``, ``eval-s2st`` and ``simulate``, on the card unless
-``--device cpu``.
+Counterpart of ``hifigan_tpu/cli.py``'s commands of the same names, on the
+card unless ``--device cpu``.  Every command runs cuDNN and cuBLAS without
+TF32 (``main`` turns PyTorch's default off), so that fp32 is fp32.
 
 ``train`` GAN-trains the vocoder on the synthetic pseudo-speech dataset,
-appending one JSON line of metrics every ``--log_every`` steps to
-``<checkpoint_dir>/metrics.jsonl`` and saving checkpoints there
-(:mod:`hifigan_tpu_torch.train.checkpoint`).  ``--config`` (YAML),
-``--data_dir``/``--augment``, the formant corpus, tensorboard events and
-the multi-device mesh are not ported yet.
+the procedural formant corpus (``--dataset formant``) or a directory of
+wav files (``--data_dir``, with ``--augment``), appending one JSON line of
+metrics every ``--log_every`` steps to ``<checkpoint_dir>/metrics.jsonl``
+and saving checkpoints there (:mod:`hifigan_tpu_torch.train.checkpoint`).
+``--config`` reads the ``training:`` block of a JSON file (YAML only where
+the ``yaml`` package is installed).  Tensorboard events and the
+multi-device mesh are not ported yet.
+
+``train-encoders`` pre-trains the judge encoders on the formant corpus's
+labels and writes ``encoders.pt`` at the end; ``train-clone`` trains the
+cloning vocoder on parallel speaker pairs (optionally with the frozen
+judge's identity loss), logging the eval-protocol probe's
+``probe_eval_cos`` and ``probe_verified`` at each log step.
 
 ``eval`` synthesises held-out formant-corpus utterances (or synthetic
 rows) with the fp32 cloning vocoder at ``TrainConfig()`` widths and writes
@@ -55,6 +67,7 @@ with ``load_jax_params``.
 from __future__ import annotations
 
 import argparse
+import importlib
 import itertools
 import json
 import logging
@@ -110,29 +123,72 @@ def _config(args):
     return cfg
 
 
+def _read_config(path: str) -> dict:
+    """A training config file: ``.json``, or YAML where the ``yaml`` package
+    is installed (the card's machine has none)."""
+    if path.lower().endswith(".json"):
+        with open(path) as f:
+            return json.load(f) or {}
+    try:
+        yaml = importlib.import_module("yaml")
+    except ImportError:
+        raise SystemExit(f"{path}: reading YAML needs the yaml package, which is not installed; write the same "
+                         'keys as a .json file: {"training": {"learning_rate": 2e-4, "beta1": 0.8, "beta2": 0.99, '
+                         '"warmup_steps": 2000, "batch_size": 16, "segment_samples": 8192}}') from None
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def _train_settings(args):
+    """``(TrainConfig, batch size, segment samples)`` of ``cli train``:
+    the flags, then the config file's ``training:`` keys over them (JAX's
+    rule), and ``--tiny``'s cap of 256 samples."""
+    cfg = _config(args)
+    training = _read_config(args.config).get("training", {}) if args.config else {}
+    cfg = replace(cfg, **{k: training[k] for k in ("learning_rate", "beta1", "beta2", "warmup_steps")
+                          if k in training})
+    seg = training.get("segment_samples", args.segment_samples)
+    return cfg, training.get("batch_size", args.batch_size), min(seg, 256) if args.tiny else seg
+
+
 def cmd_train(args) -> None:
+    from hifigan_tpu_torch.entry import resolve_device
     from hifigan_tpu_torch.train import create_train_state, make_train_step
     from hifigan_tpu_torch.train.checkpoint import CheckpointManager
-    from hifigan_tpu_torch.train.data import BatchLoader, SyntheticSpeechDataset
+    from hifigan_tpu_torch.train.data import AugmentConfig, BatchLoader, SyntheticSpeechDataset, WavDirectoryDataset
     from hifigan_tpu_torch.train.device_data import build_audio_bank, make_device_sampler
 
-    cfg = _config(args)
-    batch_size, seg = args.batch_size, args.segment_samples
-    if args.tiny:
-        seg = min(seg, 256)
-    dataset = SyntheticSpeechDataset(segment_samples=seg, size=max(64, batch_size * 8))
+    resolve_device(args.device)
+    cfg, batch_size, seg = _train_settings(args)
+    if args.data_dir:
+        dataset = WavDirectoryDataset(args.data_dir, segment_samples=seg,
+                                      augment_cfg=AugmentConfig() if args.augment else None)
+        data = args.data_dir
+    elif args.dataset == "formant":
+        from hifigan_tpu_torch.train.corpus import FormantSpeechDataset
+
+        dataset = FormantSpeechDataset(segment_samples=seg, size=args.dataset_size, seed=args.seed)
+        data = "formant"
+        log.info("training on the procedural formant-speech corpus (%d utterances)", args.dataset_size)
+    else:
+        dataset = SyntheticSpeechDataset(segment_samples=seg, size=max(64, batch_size * 8))
+        data = "synthetic"
+        log.info("no --data_dir: training on the synthetic dataset")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     state = create_train_state(cfg, dtype, args.device, seed=args.seed)
-    device = next(state.vocoder.parameters()).device
+    device = state.device
     steps_per_call = max(1, args.steps_per_call)
     sample_fn = None
-    if args.device_data:
+    if args.device_data and not isinstance(dataset, WavDirectoryDataset):
         # the whole corpus in device memory, crops drawn there: per call
         # the host sends one seed
         bank, lengths = build_audio_bank(dataset)
         sample_fn = make_device_sampler(torch.from_numpy(bank).to(device), torch.from_numpy(lengths), seg,
                                         batch_size)
         log.info("on-device data: %d utterances (%.0f MB) in device memory", bank.shape[0], bank.nbytes / 1e6)
+    elif args.device_data:
+        log.warning("--device_data needs a bankable dataset (the wav directory's items are random, augmented "
+                    "crops): using the host loader")
     step_fn = make_train_step(cfg, multi_steps=steps_per_call, sample_fn=sample_fn,
                               deep_feature_matching=args.deep_fm)
 
@@ -163,7 +219,7 @@ def cmd_train(args) -> None:
     def finish():
         mgr.save(state, force=True)
         mgr.wait()
-        _write_training_summary(args, cfg, device, steps_done, time.time() - t_start)
+        _write_training_summary(args, cfg, device, steps_done, time.time() - t_start, data)
 
     with open(metrics_path, "a") as mf:
         for epoch in (itertools.count() if args.max_steps else range(args.epochs)):
@@ -196,8 +252,10 @@ def cmd_train(args) -> None:
     finish()
 
 
-def _write_training_summary(args, cfg, device, steps, wall_s) -> None:
-    """The run's provenance, ``<checkpoint_dir>/training_summary.json``."""
+def _write_training_summary(args, cfg, device, steps, wall_s, data) -> None:
+    """The run's provenance, ``<checkpoint_dir>/training_summary.json``;
+    ``data`` names the source (the wav directory, "formant" or
+    "synthetic")."""
     summary = {
         "completed_at": time.strftime("%Y-%m-%d %H:%M:%S"),
         "wall_seconds": round(wall_s, 1),
@@ -209,11 +267,208 @@ def _write_training_summary(args, cfg, device, steps, wall_s) -> None:
         "betas": [cfg.beta1, cfg.beta2],
         "loss_weights": {"adversarial": cfg.loss_weights.adversarial,
                          "feature_matching": cfg.loss_weights.feature_matching, "mel": cfg.loss_weights.mel},
-        "data": "synthetic",
+        "data": data,
         "checkpoint_dir": args.checkpoint_dir,
     }
     with open(os.path.join(args.checkpoint_dir, "training_summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
+
+
+def cmd_train_encoders(args) -> None:
+    """Discriminative pre-training of the conditioning encoders: speaker
+    AAM-softmax over the corpus's labelled speakers and arousal-bin
+    cross-entropy (:mod:`hifigan_tpu_torch.train.encoder_pretrain`).  At
+    the end ``encoders.pt`` (``weights.save_encoder_checkpoint``) beside the
+    train-state files: what ``eval``, ``eval-clone`` and ``train-clone``
+    read."""
+    from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.train.checkpoint import CheckpointManager
+    from hifigan_tpu_torch.train.encoder_pretrain import (
+        EncoderTrainConfig,
+        build_labelled_bank,
+        create_encoder_state,
+        make_encoder_train_step,
+        make_fused_encoder_step,
+    )
+    from hifigan_tpu_torch.weights import save_encoder_checkpoint
+
+    device = resolve_device(args.device)
+    cfg = EncoderTrainConfig(n_speakers=args.n_speakers, segment_samples=args.segment_samples,
+                             batch_size=args.batch_size, learning_rate=args.lr, aam_margin=args.aam_margin,
+                             aam_scale=args.aam_scale, spk_pair_weight=args.spk_pair_weight)
+    if args.tiny:
+        cfg = EncoderTrainConfig(n_speakers=args.n_speakers, segment_samples=2048, batch_size=4,
+                                 learning_rate=args.lr, ecapa_channels=32, emo_hidden=32, emo_layers=1, emo_heads=4)
+    bank_np, lens_np, spk_np, bin_np = build_labelled_bank(n_speakers=cfg.n_speakers,
+                                                           utterances_per_speaker=args.utterances_per_speaker)
+    log.info("labelled bank: %d utterances (%.0f MB)", bank_np.shape[0], bank_np.nbytes / 1e6)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state = create_encoder_state(cfg, dtype, device, seed=args.seed)
+    step_fn = make_encoder_train_step(cfg, torch.from_numpy(bank_np).to(device), lens_np, spk_np, bin_np)
+    spc = max(1, args.steps_per_call)
+    fused = make_fused_encoder_step(step_fn, spc)
+    mgr = CheckpointManager(args.checkpoint_dir, save_interval=args.save_steps)
+    if args.resume and mgr.latest_step() is not None:
+        mgr.restore(state)
+        log.info("resumed from step %d", state.step)
+    metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
+    steps_done = state.step
+    t0 = time.time()
+    _prune_metrics(metrics_path, steps_done)
+    with open(metrics_path, "a") as mf:
+        while steps_done < args.max_steps:
+            gen = torch.Generator(device).manual_seed(((args.seed + 1) << 32) + steps_done)
+            state, m = fused(state, gen)
+            steps_done += spc
+            if steps_done % args.log_every < spc:
+                rec = {k: float(v) for k, v in m.items()}
+                rec.update(step=steps_done, wall_s=round(time.time() - t0, 1))
+                mf.write(json.dumps(rec) + "\n")
+                mf.flush()
+                log.info("step %d: spk_loss=%.3f spk_acc=%.3f pair_cos=%.3f emo_loss=%.3f emo_acc=%.3f near=%.3f",
+                         steps_done, rec["speaker_loss"], rec["speaker_acc"], rec["speaker_pair_cos"],
+                         rec["emotion_loss"], rec["emotion_acc"], rec["emotion_acc_near"])
+            mgr.save(state)
+    mgr.save(state, force=True)
+    mgr.wait()
+    save_encoder_checkpoint(os.path.join(args.checkpoint_dir, "encoders.pt"), cfg, state.ecapa, state.emo,
+                            step=steps_done)
+    log.info("encoder training done at step %d (%.0f s)", steps_done, time.time() - t0)
+
+
+def cmd_train_clone(args) -> None:
+    """Voice-cloning fine-tune on parallel-content speaker pairs, which
+    makes the FiLM conditioning pathway carry identity
+    (:mod:`hifigan_tpu_torch.train.cloning`).  Where JAX reads orbax runs
+    it reads the port's files: ``--init_from`` and ``--resume`` train-state
+    files, ``--encoders`` and ``--identity_encoders``
+    ``weights.save_encoder_checkpoint`` files."""
+    from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.train import TrainConfig, create_train_state
+    from hifigan_tpu_torch.train.checkpoint import CheckpointManager
+    from hifigan_tpu_torch.train.cloning import (
+        CloningProbe,
+        build_cloning_banks,
+        default_cache_path,
+        make_cloning_train_step,
+        make_pair_sampler,
+    )
+    from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, graft_into_extractor
+    from hifigan_tpu_torch.weights import load_encoder_checkpoint
+
+    device = resolve_device(args.device)
+    cfg = replace(_config(args), learning_rate=args.lr)
+    ecfg = EncoderTrainConfig()
+    if args.encoders and not args.tiny:
+        # the extractor is built at the encoder checkpoint's widths, so that
+        # the graft replaces like with like
+        cfg = replace(cfg, ecapa_channels=ecfg.ecapa_channels, emo_hidden=ecfg.emo_hidden,
+                      emo_layers=ecfg.emo_layers, emo_heads=ecfg.emo_heads)
+    seg = 256 if args.tiny else args.segment_samples
+    rseg = 256 if args.tiny else args.ref_samples
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state = create_train_state(cfg, dtype, device, seed=args.seed)
+    mgr = CheckpointManager(args.checkpoint_dir, save_interval=args.save_steps)
+    if args.resume and mgr.latest_step() is not None:
+        mgr.restore(state)
+        log.info("resumed cloning run from step %d", state.step)
+    elif args.init_from:
+        init_mgr = CheckpointManager(args.init_from)
+        if args.encoders and not args.tiny:
+            # the init run was trained at TrainConfig()'s extractor widths:
+            # restore into a template of those, take every generator subtree
+            # but the extractor (the graft replaces it) and the
+            # discriminators; the optimisers start fresh
+            tpl = init_mgr.restore(create_train_state(replace(TrainConfig(), learning_rate=args.lr,
+                                                              loss_weights=cfg.loss_weights),
+                                                      dtype, device, seed=args.seed))
+            kept = {k: v for k, v in tpl.vocoder.state_dict().items() if not k.startswith("embedding_extractor.")}
+            state.vocoder.load_state_dict({**state.vocoder.state_dict(), **kept})
+            state.discriminators.load_state_dict(tpl.discriminators.state_dict())
+            log.info("warm-started the non-extractor subtrees from %s step %d (extractor widths follow "
+                     "--encoders)", args.init_from, tpl.step)
+            del tpl
+        else:
+            init_mgr.restore(state)
+            log.info("warm-started from %s step %d", args.init_from, state.step)
+    if args.encoders:
+        _, e_ecapa, e_emo, e_step = load_encoder_checkpoint(args.encoders, "cpu")
+        current = state.vocoder.state_dict()
+        for name, module in (("ecapa", e_ecapa), ("emotion2vec", e_emo)):
+            want = {k[len(f"embedding_extractor.{name}."):]: tuple(v.shape) for k, v in current.items()
+                    if k.startswith(f"embedding_extractor.{name}.")}
+            got = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+            if want != got:
+                raise SystemExit(f"encoder graft shape mismatch for '{name}': facade extractor and checkpoint "
+                                 f"{args.encoders} disagree — build the facade at the encoder checkpoint's dims")
+        state.vocoder.load_state_dict(graft_into_extractor(current, e_ecapa.state_dict(), e_emo.state_dict()))
+        log.info("grafted pretrained encoders from %s (step %d)", args.encoders, e_step)
+    # the frozen speaker judge: the optional identity loss and the
+    # eval-protocol probe logged at every log step
+    judge = None
+    if not args.tiny:
+        id_path = args.identity_encoders or _first(*ENCODER_FILES, exists=os.path.isfile)
+        if id_path is None and args.identity_weight > 0:
+            raise SystemExit(f"--identity_weight needs a trained encoder file (none of {', '.join(ENCODER_FILES)} "
+                             "exists); pass --identity_encoders")
+        if id_path is not None:
+            _, judge, _, j_step = load_encoder_checkpoint(id_path, device)
+            judge.requires_grad_(False)
+            log.info("%s: frozen judge ECAPA from %s (step %d)",
+                     f"identity loss weight {args.identity_weight:.2f}" if args.identity_weight > 0
+                     else "eval-protocol probe only", id_path, j_step)
+
+    n_contents = 8 if args.tiny else args.n_contents
+    n_speakers = 4 if args.tiny else 32
+    content_bank, ref_bank, lengths = build_cloning_banks(
+        n_speakers=n_speakers, n_contents=n_contents, cache_path=None if args.tiny else default_cache_path())
+    log.info("cloning banks: content %s (%.0f MB) + ref %s (%.0f MB)", content_bank.shape,
+             content_bank.nbytes / 1e6, ref_bank.shape, ref_bank.nbytes / 1e6)
+    content_dev = torch.from_numpy(content_bank).to(device)
+    ref_dev = torch.from_numpy(ref_bank).to(device)
+    sampler = make_pair_sampler(torch.from_numpy(lengths).to(device), seg, rseg, args.batch_size)
+    probe = None
+    if judge is not None:
+        probe = CloningProbe(judge, cfg, n_speakers=n_speakers, segment_samples=seg, device=device)
+    spc = max(1, args.steps_per_call)
+    step_fn = make_cloning_train_step(
+        cfg, sampler, deep_feature_matching=args.deep_fm, multi_steps=spc,
+        identity_fn=judge if args.identity_weight > 0 else None, identity_weight=args.identity_weight,
+        identity_centroids=None if probe is None else probe.centroids_seg, identity_margin=args.identity_margin,
+        identity_finetune=args.identity_finetune)
+    metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
+    steps_done = state.step
+    t0 = time.time()
+    _prune_metrics(metrics_path, steps_done)
+    with open(metrics_path, "a") as mf:
+        while steps_done < args.max_steps:
+            gen = torch.Generator(device).manual_seed(((args.seed + 2) << 32) + steps_done)
+            try:
+                state, m = step_fn(state, gen, content_dev, ref_dev)
+            except Exception:
+                if not args.auto_recover or mgr.latest_step() is None:
+                    raise
+                log.exception("step failed; restoring the last checkpoint")
+                mgr.restore(state)
+                continue
+            steps_done += spc
+            if steps_done % args.log_every < spc:
+                rec = {k: float(v) for k, v in m.items()}
+                rec.update(step=steps_done, wall_s=round(time.time() - t0, 1))
+                if probe is not None:
+                    p_cos, p_ver = probe(state.vocoder)
+                    rec["probe_eval_cos"] = round(float(p_cos), 4)
+                    rec["probe_verified"] = round(float(p_ver), 4)
+                mf.write(json.dumps(rec) + "\n")
+                mf.flush()
+                log.info("step %d: G=%.3f D=%.3f mel=%.3f%s", steps_done, rec["generator_loss"],
+                         rec["discriminator_loss"], rec["mel_loss"],
+                         f" probe_cos={rec['probe_eval_cos']:.3f} ver={rec['probe_verified']:.2f}"
+                         if probe is not None else "")
+            mgr.save(state)
+    mgr.save(state, force=True)
+    mgr.wait()
+    log.info("cloning training done at step %d (%.0f s)", steps_done, time.time() - t0)
 
 
 # where the port's files live beside the JAX package's trained runs, best first
@@ -613,13 +868,21 @@ def cmd_simulate(args) -> None:
     }))
 
 
-def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
+def build_parser() -> argparse.ArgumentParser:
+    """The command line's parser; each command sets ``fn``."""
     p = argparse.ArgumentParser(prog="hifigan_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="GAN-train the vocoder")
     t.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    t.add_argument("--config", default=None,
+                   help="a training config's training: block (learning_rate, beta1, beta2, warmup_steps, "
+                        "batch_size, segment_samples): .json, or .yaml where the yaml package is installed")
+    t.add_argument("--data_dir", default=None, help="a directory of wav files (searched recursively)")
+    t.add_argument("--dataset", choices=["synthetic", "formant"], default="synthetic",
+                   help="built-in dataset when no --data_dir is given")
+    t.add_argument("--dataset_size", type=int, default=512, help="number of procedural utterances (formant dataset)")
+    t.add_argument("--augment", action="store_true", help="pitch, stretch and noise augmentation of --data_dir clips")
     t.add_argument("--checkpoint_dir", default="checkpoints")
     t.add_argument("--batch_size", type=int, default=16)
     t.add_argument("--segment_samples", type=int, default=8192)
@@ -645,6 +908,67 @@ def main(argv=None) -> None:
     t.add_argument("--stft_weight", type=float, default=0.0, help="multi-resolution STFT loss weight")
     t.add_argument("--adv_type", choices=["lsgan", "hinge"], default="lsgan")
     t.set_defaults(fn=cmd_train)
+
+    te = sub.add_parser("train-encoders", help="pre-train the speaker and emotion encoders on the corpus's labels")
+    te.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    te.add_argument("--checkpoint_dir", default="runs/encoders")
+    te.add_argument("--n_speakers", type=int, default=32)
+    te.add_argument("--utterances_per_speaker", type=int, default=12)
+    te.add_argument("--segment_samples", type=int, default=16384)
+    te.add_argument("--batch_size", type=int, default=32)
+    te.add_argument("--lr", type=float, default=1e-3)
+    te.add_argument("--aam_margin", type=float, default=0.2,
+                    help="AAM-softmax angular margin of the speaker objective (larger: tighter intra-class cosine)")
+    te.add_argument("--aam_scale", type=float, default=30.0)
+    te.add_argument("--spk_pair_weight", type=float, default=0.0,
+                    help="weight of the same-speaker pair-cosine pull (toward the 0.7 verification threshold)")
+    te.add_argument("--max_steps", type=int, default=4000)
+    te.add_argument("--save_steps", type=int, default=1000)
+    te.add_argument("--steps_per_call", type=int, default=1, help="optimizer steps per call of the train step")
+    te.add_argument("--log_every", type=int, default=50)
+    te.add_argument("--seed", type=int, default=0)
+    te.add_argument("--bf16", action="store_true")
+    te.add_argument("--resume", action="store_true")
+    te.add_argument("--tiny", action="store_true", help="tiny encoders and crops for smoke runs")
+    te.set_defaults(fn=cmd_train_encoders)
+
+    tc = sub.add_parser("train-clone", help="voice-cloning fine-tune on parallel-content speaker pairs")
+    tc.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    tc.add_argument("--checkpoint_dir", default="runs/cloning")
+    tc.add_argument("--init_from", default=None, help="warm-start from the newest train-state file of this dir")
+    tc.add_argument("--encoders", default=None, help="graft the encoders of this save_encoder_checkpoint file")
+    tc.add_argument("--n_contents", type=int, default=32)
+    tc.add_argument("--batch_size", type=int, default=16)
+    tc.add_argument("--segment_samples", type=int, default=8192)
+    tc.add_argument("--ref_samples", type=int, default=16384)
+    tc.add_argument("--lr", type=float, default=2e-4)
+    tc.add_argument("--max_steps", type=int, default=200000)
+    tc.add_argument("--save_steps", type=int, default=4000)
+    tc.add_argument("--steps_per_call", type=int, default=1, help="optimizer steps per call of the train step")
+    tc.add_argument("--log_every", type=int, default=100)
+    tc.add_argument("--seed", type=int, default=0)
+    tc.add_argument("--bf16", action="store_true")
+    tc.add_argument("--resume", action="store_true")
+    tc.add_argument("--auto_recover", action="store_true",
+                    help="on a failed step, restore the last checkpoint and go on")
+    tc.add_argument("--tiny", action="store_true", help="tiny model, 4 speakers x 8 contents, no judge")
+    tc.add_argument("--deep_fm", action="store_true", default=True)
+    tc.add_argument("--no_deep_fm", dest="deep_fm", action="store_false")
+    tc.add_argument("--fm_weight", type=float, default=10.0)
+    tc.add_argument("--mel_weight", type=float, default=45.0)
+    tc.add_argument("--adv_weight", type=float, default=1.0)
+    tc.add_argument("--stft_weight", type=float, default=1.0)
+    tc.add_argument("--adv_type", choices=["lsgan", "hinge"], default="lsgan")
+    tc.add_argument("--identity_weight", type=float, default=0.0,
+                    help="weight of the frozen judge's speaker-identity loss; 0 turns it off")
+    tc.add_argument("--identity_encoders", default=None,
+                    help="the judge's save_encoder_checkpoint file for the identity loss and the probe (default: "
+                         f"the first of {', '.join(ENCODER_FILES)} that exists)")
+    tc.add_argument("--identity_margin", type=float, default=0.8,
+                    help="centroid-cosine hinge margin: pairs above it get no identity gradient")
+    tc.add_argument("--identity_finetune", action="store_true",
+                    help="update only the conditioning pathway (embedding extractor + FiLM); the trunk stays frozen")
+    tc.set_defaults(fn=cmd_train_clone)
 
     e = sub.add_parser("eval", help="run the evaluation suite")
     e.add_argument("--checkpoint_dir", default=None,
@@ -710,7 +1034,17 @@ def main(argv=None) -> None:
     s.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
     s.set_defaults(fn=cmd_simulate)
 
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    args = build_parser().parse_args(argv)
+    # The commands hold fp32 to fp32: cuDNN's convolutions and cuBLAS's
+    # matmuls in full fp32, not PyTorch's default TF32 for cuDNN.  bf16
+    # paths do not read these flags.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     args.fn(args)
 
 

@@ -1,8 +1,11 @@
 """Conditioning encoders: ECAPA-TDNN (speaker, 192-d) and Emotion2Vec
 (emotion, 256-d), and the extractor that runs both on one mel.
 
-Counterpart of ``hifigan_tpu/models/embeddings.py`` at inference (no
-classifier heads).  Activations run channels-last ``[B, T, C]``; ``dtype``
+Counterpart of ``hifigan_tpu/models/embeddings.py``.  The classifier heads
+are optional submodules named ``classifier`` (JAX's leaf paths): ECAPA-TDNN
+has one when built with ``num_speakers``, Emotion2Vec when built with
+``num_emotions``, and ``forward(..., train=True)`` returns their logits as
+the JAX modules' ``train=True`` does.  Activations run channels-last ``[B, T, C]``; ``dtype``
 is the compute dtype, and the parts the JAX package runs in fp32 (the SE
 gate, attentive statistics pooling, the embedding heads and their
 LayerNorm) run in fp32 here too.  The convolutions, matmuls and attention
@@ -111,10 +114,12 @@ class EcapaTdnn(nn.Module):
     """Mel-input ECAPA-TDNN speaker encoder → L2-normalised embedding.
 
     ``forward(mel)``: ``[B, n_mels, T]`` or ``[B, T, n_mels]`` (see
-    :func:`_channels_last`) → ``[B, embedding_dim]`` fp32."""
+    :func:`_channels_last`) → ``[B, embedding_dim]`` fp32;
+    ``forward(mel, train=True)`` with a head (``num_speakers``) → ``(emb,
+    logits [B, num_speakers])``, the fp32 Dense on the unit embedding."""
 
     def __init__(self, n_mels: int = 80, channels: int = 512, embedding_dim: int = 192,
-                 dtype=torch.float32, *, gen: torch.Generator):
+                 dtype=torch.float32, *, gen: torch.Generator, num_speakers: int | None = None):
         super().__init__()
         self.n_mels, self.dtype = n_mels, dtype
         self.stem_kernel = _normal(gen, 0.02, 5, n_mels, channels)
@@ -126,8 +131,9 @@ class EcapaTdnn(nn.Module):
         self.asp = AttentiveStatsPooling(3 * channels, gen=gen)
         self.embed = Dense(6 * channels, embedding_dim, gen)
         self.embed_norm = LayerNorm(embedding_dim)
+        self.classifier = Dense(embedding_dim, num_speakers, gen) if num_speakers else None
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, train: bool = False):
         dt = self.dtype
         x = _channels_last(mel, self.n_mels).to(dt)
         x = torch.relu(conv_ops.conv1d(x, self.stem_kernel, self.stem_bias, padding=2))
@@ -138,7 +144,10 @@ class EcapaTdnn(nn.Module):
             feats.append(x)
         x = torch.relu(self.expand(torch.cat(feats, dim=-1)))
         emb = self.embed_norm(self.embed(self.asp(x)))
-        return emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+        emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+        if train and self.classifier is not None:
+            return emb, self.classifier(emb)
+        return emb
 
 
 class Emotion2Vec(nn.Module):
@@ -148,10 +157,14 @@ class Emotion2Vec(nn.Module):
     Per-utterance CMVN over time and mels (population std) → 3 convs
     (k = 3) with tanh-approximated GELU → per-frame normalisation → + 0.3 ·
     sinusoidal positions → ``num_layers`` post-norm encoder layers → fp32
-    frame projection → time mean → L2 normalisation."""
+    frame projection → time mean → L2 normalisation.  ``return_frames``
+    adds the projected frames ``[B, T, embedding_dim]`` after the utterance
+    embedding; ``train=True`` (a head: ``num_emotions``) adds the logits of
+    the fp32 Dense on the utterance embedding last."""
 
     def __init__(self, n_mels: int = 80, hidden_dim: int = 512, embedding_dim: int = 256,
-                 num_layers: int = 6, num_heads: int = 8, dtype=torch.float32, *, gen: torch.Generator):
+                 num_layers: int = 6, num_heads: int = 8, dtype=torch.float32, *, gen: torch.Generator,
+                 num_emotions: int | None = None):
         super().__init__()
         self.n_mels, self.num_layers, self.dtype = n_mels, num_layers, dtype
         cin = n_mels
@@ -163,10 +176,11 @@ class Emotion2Vec(nn.Module):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
                 hidden_dim, num_heads, 4 * hidden_dim, dtype, gen=gen))
         self.frame_proj = Dense(hidden_dim, embedding_dim, gen)
+        self.classifier = Dense(embedding_dim, num_emotions, gen) if num_emotions else None
         self.register_buffer("positions", torch.from_numpy(sinusoidal_positions(MAX_POSITIONS, hidden_dim)),
                              persistent=False)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, train: bool = False, return_frames: bool = False):
         dt = self.dtype
         mf = _channels_last(mel, self.n_mels).float()
         sd = mf.std(dim=(1, 2), keepdim=True, correction=0).clamp_min(1e-5)
@@ -180,8 +194,15 @@ class Emotion2Vec(nn.Module):
         x = x + 0.3 * self.positions[: x.shape[1]].to(dt)
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x)
-        utt = self.frame_proj(x.float()).mean(dim=1)
-        return utt / utt.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+        frames = self.frame_proj(x.float())
+        utt = frames.mean(dim=1)
+        utt = utt / utt.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+        out = (utt, frames) if return_frames else (utt,)
+        if train:
+            if self.classifier is None:
+                raise ValueError("train=True needs the classifier head: build Emotion2Vec with num_emotions")
+            out += (self.classifier(utt),)
+        return out if len(out) > 1 else utt
 
 
 class EmbeddingExtractor(nn.Module):

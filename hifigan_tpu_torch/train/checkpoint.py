@@ -1,12 +1,15 @@
-"""Checkpoints of the whole GAN train state, one ``torch.save`` file a step.
+"""Checkpoints of a whole train state, one ``torch.save`` file a step.
 
 Counterpart of ``hifigan_tpu/train/checkpoint.py`` (orbax there), with its
 API: ``save`` / ``restore`` / ``latest_step`` / ``all_steps`` / ``wait`` /
 ``close``, step-based retention of the newest ``max_to_keep``, saves only
 at multiples of ``save_interval`` unless forced, and a save of a step
 already on disk (or older than the newest) a no-op.  A file holds
-:meth:`GanTrainState.state_dict`: both models, both optimisers' states and
-the step.  It is written to a temporary name and renamed, so a file named
+:meth:`GanTrainState.state_dict` (both models, both optimisers' states and
+the step) or :meth:`EncoderTrainState.state_dict` (the two encoders with
+their heads, their two optimisers and the step): any state with
+``state_dict``, ``load_state_dict``, ``step`` and ``device``.  It is
+written to a temporary name and renamed, so a file named
 ``<step>.pt`` is whole.
 """
 
@@ -19,7 +22,6 @@ from typing import Optional
 
 import torch
 
-from hifigan_tpu_torch.train.state import GanTrainState
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -36,7 +38,7 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self._dir, f"{step}.pt")
 
-    def save(self, state: GanTrainState, *, metadata: Optional[dict] = None, force: bool = False) -> bool:
+    def save(self, state, *, metadata: Optional[dict] = None, force: bool = False) -> bool:
         """Write ``state`` at ``state.step``; returns whether it wrote."""
         step = int(state.step)
         latest = self.latest_step()
@@ -54,14 +56,13 @@ class CheckpointManager:
             os.remove(self._path(old))
         return True
 
-    def restore(self, state: GanTrainState, step: Optional[int] = None) -> GanTrainState:
+    def restore(self, state, step: Optional[int] = None):
         """Load step ``step`` (default: the newest) into ``state``, on its
         devices; returns it."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self._dir}")
-        device = next(state.vocoder.parameters()).device
-        state.load_state_dict(torch.load(self._path(step), map_location=device, weights_only=True))
+        state.load_state_dict(torch.load(self._path(step), map_location=state.device, weights_only=True))
         return state
 
     def latest_step(self) -> Optional[int]:

@@ -1,17 +1,87 @@
-"""Host-side training data: synthetic pseudo-speech and a shuffled batch
-loader.
+"""Host-side training data: a directory of wav files with augmentation,
+synthetic pseudo-speech and a shuffled batch loader.
 
-The port's own copy of ``SyntheticSpeechDataset`` and ``BatchLoader`` from
-``hifigan_tpu/train/data.py`` (numpy and the standard library; the same
-rows and batches for the same seeds).
+The port's own copy of ``hifigan_tpu/train/data.py`` (numpy and the
+standard library; the same crops, rows and batches for the same seeds and
+the same ``random.Random``).  Augmentation follows the reference training
+config's block: pitch ±2 semitones and stretch 0.9–1.1 by linear
+resampling, additive noise of std 0.01, each with probability 0.5.
 """
 
 from __future__ import annotations
 
+import os
 import random
-from typing import Iterator
+from dataclasses import dataclass
+from typing import Iterator, List, Optional
 
 import numpy as np
+
+from hifigan_tpu_torch.streaming.features import read_wav, resample_linear
+
+
+@dataclass
+class AugmentConfig:
+    """The reference training config's augmentation block."""
+
+    pitch_semitones: float = 2.0
+    stretch_min: float = 0.9
+    stretch_max: float = 1.1
+    noise_std: float = 0.01
+    probability: float = 0.5
+
+
+def augment(audio: np.ndarray, cfg: AugmentConfig, rng: random.Random) -> np.ndarray:
+    """Pitch shift, time stretch (both by resampling 16 kHz audio) and
+    additive Gaussian noise, each drawn with ``cfg.probability`` from
+    ``rng``; the noise comes from a numpy generator seeded by ``rng``."""
+    if rng.random() < cfg.probability:
+        semis = rng.uniform(-cfg.pitch_semitones, cfg.pitch_semitones)
+        audio = resample_linear(audio, int(16000 * 2.0 ** (semis / 12.0)), 16000)
+    if rng.random() < cfg.probability:
+        stretch = rng.uniform(cfg.stretch_min, cfg.stretch_max)
+        audio = resample_linear(audio, 16000, int(16000 * stretch))
+    if cfg.noise_std > 0 and rng.random() < cfg.probability:
+        noise = np.random.default_rng(rng.randrange(1 << 31)).normal(0, cfg.noise_std, len(audio))
+        audio = audio + noise.astype(np.float32)
+    return audio.astype(np.float32)
+
+
+class WavDirectoryDataset:
+    """Every ``*.wav`` under ``root`` (walked recursively, names sorted in
+    each directory); item ``i`` is file ``i`` resampled to
+    ``sample_rate``, augmented when ``augment_cfg`` is given, zero-padded
+    to ``segment_samples`` when shorter, and cropped at a random offset.
+    One ``random.Random(seed)`` draws the augmentation and the crops."""
+
+    def __init__(self, root: str, *, segment_samples: int = 8192, sample_rate: int = 16_000,
+                 augment_cfg: Optional[AugmentConfig] = None, seed: int = 0):
+        self.files: List[str] = []
+        for dirpath, _, names in os.walk(root):
+            for n in sorted(names):
+                if n.lower().endswith(".wav"):
+                    self.files.append(os.path.join(dirpath, n))
+        if not self.files:
+            raise FileNotFoundError(f"no .wav files under {root}")
+        self.segment_samples = segment_samples
+        self.sample_rate = sample_rate
+        self.augment_cfg = augment_cfg
+        self._rng = random.Random(seed)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        audio, sr = read_wav(self.files[idx % len(self.files)])
+        if sr != self.sample_rate:
+            audio = resample_linear(audio, sr, self.sample_rate)
+        if self.augment_cfg:
+            audio = augment(audio, self.augment_cfg, self._rng)
+        seg = self.segment_samples
+        if len(audio) < seg:
+            audio = np.pad(audio, (0, seg - len(audio)))
+        start = self._rng.randrange(0, len(audio) - seg + 1)
+        return audio[start: start + seg].astype(np.float32)
 
 
 class SyntheticSpeechDataset:

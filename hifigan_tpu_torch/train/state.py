@@ -10,8 +10,10 @@ update, and optional clipping by the global norm as optax clips.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
+from typing import Callable
 
 import torch
 
@@ -69,19 +71,20 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
 
 
 class ScheduledAdam:
-    """Adam (AdamW when ``cfg.weight_decay > 0``) on ``params``, with the
-    learning rate of :func:`learning_rate` at ``count``, the number of
-    updates applied so far, and optional global-norm clipping first.  On
+    """Adam (AdamW when ``weight_decay > 0``) on ``params``, with the
+    learning rate ``schedule(count)`` at ``count``, the number of updates
+    applied so far, and optional global-norm clipping first.  A parameter
+    whose ``.grad`` is None is skipped (optax would decay its moments with a
+    zero gradient): a caller that needs the decay sets a zero gradient.  On
     the card it runs ``torch.optim``'s fused kernels."""
 
-    def __init__(self, params, cfg: TrainConfig):
-        if cfg.decay_steps <= cfg.warmup_steps:
-            raise ValueError(f"decay_steps ({cfg.decay_steps}) must exceed warmup_steps ({cfg.warmup_steps})")
-        self.params, self.cfg, self.count = list(params), cfg, 0
+    def __init__(self, params, schedule: Callable[[int], float], *, betas: tuple[float, float],
+                 weight_decay: float = 0.0, grad_clip: float = 0.0):
+        self.params, self.schedule, self.grad_clip, self.count = list(params), schedule, grad_clip, 0
         fused = self.params[0].device.type == "cuda"
-        kwargs = dict(lr=0.0, betas=(cfg.beta1, cfg.beta2), eps=1e-8, fused=fused)
-        if cfg.weight_decay > 0:
-            self.adam = torch.optim.AdamW(self.params, weight_decay=cfg.weight_decay, **kwargs)
+        kwargs = dict(lr=0.0, betas=betas, eps=1e-8, fused=fused)
+        if weight_decay > 0:
+            self.adam = torch.optim.AdamW(self.params, weight_decay=weight_decay, **kwargs)
         else:
             self.adam = torch.optim.Adam(self.params, weight_decay=0.0, **kwargs)
 
@@ -90,10 +93,10 @@ class ScheduledAdam:
 
     def step(self) -> None:
         """Apply one update from each parameter's ``.grad``."""
-        if self.cfg.grad_clip > 0:
-            clip_by_global_norm([p.grad for p in self.params if p.grad is not None], self.cfg.grad_clip)
+        if self.grad_clip > 0:
+            clip_by_global_norm([p.grad for p in self.params if p.grad is not None], self.grad_clip)
         for group in self.adam.param_groups:
-            group["lr"] = learning_rate(self.cfg, self.count)
+            group["lr"] = self.schedule(self.count)
         self.adam.step()
         self.count += 1
 
@@ -106,7 +109,12 @@ class ScheduledAdam:
 
 
 def make_optimizer(params, cfg: TrainConfig) -> ScheduledAdam:
-    return ScheduledAdam(params, cfg)
+    """optax's ``chain(clip_by_global_norm?, adam(w)(warmup_cosine_decay_schedule))``
+    of ``cfg``: :func:`learning_rate`, betas ``(cfg.beta1, cfg.beta2)``."""
+    if cfg.decay_steps <= cfg.warmup_steps:
+        raise ValueError(f"decay_steps ({cfg.decay_steps}) must exceed warmup_steps ({cfg.warmup_steps})")
+    return ScheduledAdam(params, functools.partial(learning_rate, cfg), betas=(cfg.beta1, cfg.beta2),
+                         weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)
 
 
 @dataclass
@@ -119,6 +127,10 @@ class GanTrainState:
     gen_opt: ScheduledAdam = field(repr=False)
     disc_opt: ScheduledAdam = field(repr=False)
     step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.vocoder.parameters()).device
 
     def state_dict(self) -> dict:
         return {"step": self.step, "vocoder": self.vocoder.state_dict(),

@@ -57,6 +57,46 @@ def _mel_and_real(batch: dict, cfg: TrainConfig) -> tuple[torch.Tensor, torch.Te
     return mel, real[:, : mel.shape[-1] * cfg.mel.hop_length]
 
 
+def discriminator_phase(state: GanTrainState, real: torch.Tensor, fake: torch.Tensor, w) -> torch.Tensor:
+    """One discriminator update on ``(real, fake.detach())``; returns its loss."""
+    discs = state.discriminators
+    out_real, out_fake = discs(real), discs(fake.detach())
+    d_loss = discriminator_loss(out_real["mpd_outputs"] + out_real["msd_outputs"],
+                                out_fake["mpd_outputs"] + out_fake["msd_outputs"], w.adversarial_type)
+    state.disc_opt.zero_grad()
+    d_loss.backward()
+    state.disc_opt.step()
+    return d_loss
+
+
+def generator_losses(discs, real: torch.Tensor, fake: torch.Tensor, fake_mel: torch.Tensor,
+                     target_mel: torch.Tensor, w, deep_feature_matching: bool) -> tuple[torch.Tensor, dict]:
+    """The generator's weighted loss against ``discs`` (their parameters
+    take no gradient here) and its parts: adversarial, feature matching
+    (over the final outputs, or every layer's maps when
+    ``deep_feature_matching``), mel L1 of ``fake_mel`` against
+    ``target_mel``, and the multi-resolution STFT loss when it is weighted."""
+    discs.requires_grad_(False)
+    try:
+        with torch.no_grad():
+            out_real = discs(real)
+        out_fake = discs(fake)
+    finally:
+        discs.requires_grad_(True)
+    adv = generator_adversarial_loss(out_fake["mpd_outputs"] + out_fake["msd_outputs"], w.adversarial_type)
+    key = "features" if deep_feature_matching else "outputs"
+    fm = feature_matching_loss(out_real[f"mpd_{key}"] + out_real[f"msd_{key}"],
+                               out_fake[f"mpd_{key}"] + out_fake[f"msd_{key}"])
+    mel_loss = mel_l1_loss(fake_mel, target_mel)
+    total = w.adversarial * adv + w.feature_matching * fm + w.mel * mel_loss
+    metrics = {"adv_loss": adv, "fm_loss": fm, "mel_loss": mel_loss}
+    if w.multi_res_stft > 0:
+        stft_loss = multi_resolution_stft_loss(fake, real)
+        total = total + w.multi_res_stft * stft_loss
+        metrics["stft_loss"] = stft_loss
+    return total, metrics
+
+
 def make_train_step(
     cfg: TrainConfig,
     *,
@@ -96,34 +136,9 @@ def make_train_step(
         else:
             fake = generate(voc, mel, batch)
 
-        # discriminator phase, on the detached fake
-        out_real, out_fake = discs(real), discs(fake.detach())
-        d_loss = discriminator_loss(out_real["mpd_outputs"] + out_real["msd_outputs"],
-                                    out_fake["mpd_outputs"] + out_fake["msd_outputs"], w.adversarial_type)
-        state.disc_opt.zero_grad()
-        d_loss.backward()
-        state.disc_opt.step()
-
-        # generator phase, against the updated discriminators, whose
-        # parameters take no gradient here
-        discs.requires_grad_(False)
-        try:
-            with torch.no_grad():
-                out_real = discs(real)
-            out_fake = discs(fake)
-        finally:
-            discs.requires_grad_(True)
-        adv = generator_adversarial_loss(out_fake["mpd_outputs"] + out_fake["msd_outputs"], w.adversarial_type)
-        key = "features" if deep_feature_matching else "outputs"
-        fm = feature_matching_loss(out_real[f"mpd_{key}"] + out_real[f"msd_{key}"],
-                                   out_fake[f"mpd_{key}"] + out_fake[f"msd_{key}"])
-        mel_loss = mel_l1_loss(audio_to_mel(fake, cfg), mel)
-        total = w.adversarial * adv + w.feature_matching * fm + w.mel * mel_loss
-        metrics = {"adv_loss": adv, "fm_loss": fm, "mel_loss": mel_loss}
-        if w.multi_res_stft > 0:
-            stft_loss = multi_resolution_stft_loss(fake, real)
-            total = total + w.multi_res_stft * stft_loss
-            metrics["stft_loss"] = stft_loss
+        d_loss = discriminator_phase(state, real, fake, w)
+        # generator phase, against the updated discriminators
+        total, metrics = generator_losses(discs, real, fake, audio_to_mel(fake, cfg), mel, w, deep_feature_matching)
         state.gen_opt.zero_grad()
         total.backward()
         state.gen_opt.step()

@@ -7,8 +7,8 @@ res2_kernel_1`` is ``embedding_extractor.ecapa.block_0.res2_kernel_1``)
 and the values copy over unchanged.  One loader serves every module of
 the port: the generator, the encoders, the vocoder facade and the
 discriminators, the S2ST model and the unit vocoder.
-:func:`load_jax_train_state` carries a whole JAX train state, optimisers
-included.
+:func:`load_jax_train_state` and :func:`load_jax_encoder_state` carry a
+whole JAX train state, optimisers included.
 
 Also the S2ST stack's configs as the JAX package's trainers write them
 (``streamspeech_config.json`` with its feature revision,
@@ -112,6 +112,19 @@ def _adam_state(module: nn.Module, opt, opt_state) -> tuple[dict, int]:
     return state, count
 
 
+def _load_jax_state(state, parts, jax_step) -> None:
+    """Fill ``(module, optimiser, flax params, optax state)`` ``parts`` and
+    ``state.step``; every part is matched before any value changes."""
+    params = [(module, _matched(module, tree)) for module, _, tree, _ in parts]
+    opts = [(opt, *_adam_state(module, opt, opt_state)) for module, opt, _, opt_state in parts]
+    for module, values in params:
+        _copy(module, values)
+    for opt, opt_state, count in opts:
+        opt.adam.load_state_dict(opt_state)
+        opt.count = count
+    state.step = int(np.asarray(jax_step))
+
+
 def load_jax_train_state(state, jax_state):
     """Fill a port ``GanTrainState`` from a JAX ``GanTrainState`` whose leaves
     are numpy arrays: both models' parameters (as :func:`load_jax_params`),
@@ -120,16 +133,21 @@ def load_jax_train_state(state, jax_state):
     (``chain(adam(schedule))`` is ``((ScaleByAdamState,
     ScaleByScheduleState),)``); anything that does not match raises before
     any value is changed."""
-    params = [(state.vocoder, _matched(state.vocoder, jax_state.gen_params)),
-              (state.discriminators, _matched(state.discriminators, jax_state.disc_params))]
-    opts = [(state.gen_opt, *_adam_state(state.vocoder, state.gen_opt, jax_state.gen_opt_state)),
-            (state.disc_opt, *_adam_state(state.discriminators, state.disc_opt, jax_state.disc_opt_state))]
-    for module, values in params:
-        _copy(module, values)
-    for opt, opt_state, count in opts:
-        opt.adam.load_state_dict(opt_state)
-        opt.count = count
-    state.step = int(np.asarray(jax_state.step))
+    _load_jax_state(state, [(state.vocoder, state.gen_opt, jax_state.gen_params, jax_state.gen_opt_state),
+                            (state.discriminators, state.disc_opt, jax_state.disc_params,
+                             jax_state.disc_opt_state)], jax_state.step)
+    return state
+
+
+def load_jax_encoder_state(state, jax_state):
+    """Fill a port ``EncoderTrainState`` from a JAX ``EncoderTrainState``
+    whose leaves are numpy arrays: both encoders' parameters with their
+    classifier heads, both optax Adam states (``mu`` → ``exp_avg``, ``nu``
+    → ``exp_avg_sq``) and update counts (the count sets the emotion
+    schedule's position), and ``step``, matched as strictly as
+    :func:`load_jax_train_state` matches."""
+    _load_jax_state(state, [(state.ecapa, state.ecapa_opt, jax_state.ecapa_params, jax_state.ecapa_opt),
+                            (state.emo, state.emo_opt, jax_state.emo_params, jax_state.emo_opt)], jax_state.step)
     return state
 
 

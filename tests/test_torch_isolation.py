@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``hifigan_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, orbax, yaml or the JAX package, and
 the entry points (the generator, the vocoder, the train state, ``cli
-train``, the S2ST model, the unit vocoder, the S2ST runtime, ``cli
-simulate``, ``cli eval``, ``cli eval-clone`` and the CTC judge) run on the
-card unless the caller asks for the CPU (``cli eval-s2st`` too)."""
+train``, ``cli train-encoders``, ``cli train-clone``, the S2ST model, the
+unit vocoder, the S2ST runtime, ``cli simulate``, ``cli eval``, ``cli
+eval-clone`` and the CTC judge) run on the card unless the caller asks for
+the CPU (``cli eval-s2st`` too)."""
 
 import ast
 import subprocess
@@ -68,6 +69,10 @@ def test_entry_without_a_card_raises(monkeypatch, tmp_path):
             build()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["simulate", "--tiny"])
+    for command in ("train-encoders", "train-clone"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([command, "--tiny", "--max_steps", "1", "--checkpoint_dir", str(tmp_path / command)])
+        assert not (tmp_path / command).exists()
 
 
 def test_entry_on_cpu_runs_the_flagship():
