@@ -102,12 +102,32 @@ Phases, each printing its own line:
      for 2 steps; each step's CUDA-event time as the commands run it,
      audio-seconds trained a second and peak memory.  Only counts are cut:
      2 utterances a speaker, 2 contents, 16 formant utterances, the steps.
-     Every cli.main call of phases 9-11 runs with TF32 turned on before it
+     Every cli.main call of phases 9-12 runs with TF32 turned on before it
      and must leave it off;
- 12. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
+ 12. training runs: `cli train-unit-vocoder` at UnitVocoderTaskConfig()
+     (runs/unit_vocoder's code config: HiFi-GAN V1 at 512, embed 128; 8 x
+     16-unit windows = 8 x 65,536 samples a step, fp32) for 2 + 3 steps from
+     the seeded state (finite losses, parameters that change, no GRC launch,
+     code_config.json and the last <step>.pt written), then 2 steps with
+     --bf16 (finite losses); one fp32 unit-vocoder step on the card against
+     the CPU at 1 x 4 units (16,384 samples, the CLI's loss weights with the
+     STFT term); `cli train-s2st --eval_samples 8` at small_config() (d 256,
+     6 + 3 layers, the transition head; 16 x 4 s a step) for 2 + 3 steps
+     (finite losses, transition_acc in [0, 1], parameters that change, no
+     GRC launch, s2st_eval.json with JAX's keys); one fp32 S2ST step on the
+     card against the CPU at batch 2 on given draws (losses within 1e-4,
+     gradients as phase 11 holds them); `cli eval-s2st --checkpoint_dir
+     --unit_vocoder` over both run directories (JAX's keys, no GRC
+     launch); `cli info` (the generator's parameter count); each step's
+     CUDA-event time as the commands run it, audio-seconds trained a second,
+     peak memory and each command's wall.  Only counts are cut: 16 and 32
+     bank utterances (two batches' worth; JAX 256 and 512), 8 held-out
+     utterances (JAX 32), the steps;
+ 13. traces: torch.profiler over 10 forwards of the kernel path, 10 cloning
      calls, 3 train steps, one S2ST session, one HMT session (learned gate),
-     10 of eval-clone's cloning calls and one cloning train step
-     (train-clone's, identity hinge included): the device's busy share of the
+     10 of eval-clone's cloning calls, one cloning train step (train-clone's,
+     identity hinge included), one unit-vocoder train step and one S2ST
+     train step: the device's busy share of the
      window, launches per call (and per policy call of the sessions), the
      call's peak device memory and device time per kernel family
      (attention, the convolutions' backward, FFT and the optimiser each its
@@ -122,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -168,6 +189,8 @@ from hifigan_tpu_torch.train.cloning import (
     make_cloning_train_step,
     make_pair_sampler,
 )
+from hifigan_tpu_torch.train.s2st_task import S2STTaskConfig
+from hifigan_tpu_torch.train.unit_vocoder import UnitVocoderTaskConfig
 from hifigan_tpu_torch.train.encoder_pretrain import (
     EncoderTrainConfig,
     build_labelled_bank,
@@ -271,6 +294,23 @@ PIPE_IDENTITY_MARGIN = 1.0
 # leaves (rounding noise) to PIPE_ZERO_FLOOR of the model's peak.
 PIPE_GRAD_FRAC, PIPE_GRAD_L2, PIPE_GRAD_FLOOR, PIPE_ZERO_FLOOR = 2e-2, 1e-2, 1e-7, 1e-6
 ZERO_GRADIENT = ("asp.att2.bias", ".mha.k.bias")  # a bias before a softmax along which it is constant
+
+# The training-runs phase: cli train-unit-vocoder at UnitVocoderTaskConfig()
+# (runs/unit_vocoder's code config: HiFi-GAN V1 at 512, embed 128, 16 frames a
+# unit at most; windows of 16 units = 65,536 samples, batch 8; fp32, then
+# --bf16) and cli train-s2st at small_config() (runs/s2st3's: d 256, 6 + 3
+# layers, 4 heads, vocab 32, chunk 8, the transition head; batch 16 x 4 s =
+# 400 frames; fp32) with the held-out token F1, then cli eval-s2st over both
+# run directories and cli info.  Counts cut for the time limit only: the
+# banks' utterances (JAX 256 and 512; here two batches' worth), the held-out
+# set (JAX 32) and the steps.  The card-vs-CPU steps: the unit vocoder at 1
+# row x 4 units (16,384 samples) with the CLI's loss weights, the STFT term
+# included; the S2ST model at batch 2 on given draws (one prefix-masked row).
+RUNS_UV_DATASET, RUNS_S2ST_DATASET, RUNS_EVAL_SAMPLES = 16, 32, 8
+RUNS_WARMUP, RUNS_TIMED, RUNS_BF16_STEPS = 2, 3, 2
+RUNS_UV_CHECK_UNITS = 4
+RUNS_S2ST_DRAW = {"idx": [0, 1], "use_prefix": [True, False], "frac": [0.6, 0.9]}
+S2ST_EVAL_KEYS = {"token_f1", "exact_match", "n", "step"}  # the JAX package's s2st_eval.json
 
 # The eval sample's metrics on the card against the CPU (TF32 off; the card
 # runs the fp32 kernel, the CPU the plain chain): SIM is a cosine of unit
@@ -1014,8 +1054,9 @@ def _check_eval_clone(files: dict, directory: str) -> dict:
 @contextlib.contextmanager
 def _timed_steps(module, factory: str, record: list):
     """Wrap ``module.factory`` so that every step it makes records its
-    CUDA-event time, the GRC launches inside it and the state it ran on,
-    as the commands that build their step through it run it."""
+    CUDA-event time, the GRC launches inside it, the state it ran on, the
+    step itself and its other arguments, as the commands that build their
+    step through it run it."""
     real = getattr(module, factory)
 
     def make(*args, **kwargs):
@@ -1028,7 +1069,7 @@ def _timed_steps(module, factory: str, record: list):
             out = step(state, *a, **kw)
             end.record()
             end.synchronize()
-            record.append({"ms": start.elapsed_time(end), "state": state,
+            record.append({"ms": start.elapsed_time(end), "state": state, "step": step, "args": a,
                            "launches": {k: v - before[k] for k, v in grc_kernel.launches.items()}})
             return out
 
@@ -1241,6 +1282,267 @@ def _check_pipeline(directory: str) -> dict:
             "moved": len(moved), "trunk": len(trunk), "formant_rows": formant_rows, "state": state,
             "banks": (content, ref), "step": make_cloning_train_step(cfg, sampler, identity_fn=probe.judge, identity_weight=1.0,
                                             identity_centroids=probe.centroids_seg)}
+
+
+def _hold_grads(pairs, what: str) -> dict:
+    """Each ``(card_module, cpu_module)`` pair's gradients, card against CPU:
+    every leaf within PIPE_GRAD_FRAC of its max |g| plus PIPE_GRAD_FLOOR of
+    its module's, and within PIPE_GRAD_L2 of its norm; a leaf whose gradient
+    is zero but for rounding (its peak under 1e-6 of the module's) within
+    PIPE_ZERO_FLOOR of the module's.  ReLU and LeakyReLU decisions flip
+    within the devices' fp32 difference (PIPE_GRAD_FRAC says more).  Returns
+    the worst shares and the count of leaves above 1e-4 of their peak."""
+    worst = {"max_share": 0.0, "max_leaf": "", "l2": 0.0, "l2_leaf": "", "over_1e-4": 0, "leaves": 0}
+    for card, cpu in pairs:
+        want = {n: p.grad for n, p in cpu.named_parameters()}
+        top = max(float(g.abs().max()) for g in want.values())
+        for name, p in card.named_parameters():
+            err = p.grad.cpu() - want[name]
+            peak, max_err = float(want[name].abs().max()), float(err.abs().max())
+            worst["leaves"] += 1
+            if peak < 1e-6 * top:
+                if max_err > PIPE_ZERO_FLOOR * top:
+                    raise AssertionError(f"{what} {name}: gradient err {max_err:.3g} > {PIPE_ZERO_FLOOR} of {top:.3g}")
+                continue
+            share = max_err / (PIPE_GRAD_FRAC * peak + PIPE_GRAD_FLOOR * top)
+            l2 = float(err.norm() / want[name].norm().clamp_min(1e-30))
+            worst["over_1e-4"] += max_err > 1e-4 * peak
+            if share > worst["max_share"]:
+                worst.update(max_share=share, max_leaf=name, max_rel=max_err / peak)
+            if l2 > worst["l2"]:
+                worst.update(l2=l2, l2_leaf=name)
+    if worst["max_share"] > 1 or worst["l2"] > PIPE_GRAD_L2:
+        raise AssertionError(f"the fp32 {what} step's gradients on the card differ from the CPU's: {worst}")
+    return worst
+
+
+def _loss_err(card: dict, cpu: dict, what: str) -> float:
+    """The worst relative error of the card's metrics against the CPU's;
+    raises above 1e-4."""
+    err = max(abs(float(card[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-12) for k in cpu)
+    if err > 1e-4:
+        raise AssertionError(f"the fp32 {what} step's metrics on the card {card} differ from the CPU's {cpu}")
+    return err
+
+
+def _check_uv_step_on_cpu() -> dict:
+    """One fp32 unit-vocoder step at UnitVocoderTaskConfig()'s code config
+    on the card against the same step on the CPU: the same seeded state,
+    one window of RUNS_UV_CHECK_UNITS units drawn from a two-utterance bank,
+    cli train-unit-vocoder's loss weights (the STFT term included), TF32
+    off: metrics within 1e-4 relative, gradients held by :func:`_hold_grads`."""
+    from hifigan_tpu_torch.train import LossWeights
+    from hifigan_tpu_torch.train import unit_vocoder as uv
+
+    task = replace(uv.UnitVocoderTaskConfig(), n_utterances=2, window_units=RUNS_UV_CHECK_UNITS, batch_size=1)
+    bank = {k: torch.from_numpy(v) for k, v in uv.build_unit_vocoder_bank(task).items()}
+    batch = uv.make_unit_vocoder_sampler(task)(torch.Generator().manual_seed(1), bank)
+    tcfg = TrainConfig(warmup_steps=1000, loss_weights=LossWeights(feature_matching=2.0, mel=45.0, multi_res_stft=1.0))
+    states = {dev: uv.create_unit_vocoder_state(tcfg, task, torch.float32, dev, seed=1) for dev in ("cuda", "cpu")}
+    metrics = {dev: uv.make_unit_vocoder_train_step(tcfg, task)(st, batch)[1] for dev, st in states.items()}
+    err = _loss_err(metrics["cuda"], metrics["cpu"], "unit-vocoder")
+    grads = _hold_grads([(states["cuda"].vocoder, states["cpu"].vocoder),
+                         (states["cuda"].discriminators, states["cpu"].discriminators)], "unit-vocoder")
+    return {"loss_err": err, "grads": grads, "samples": task.window_samples}
+
+
+def _check_s2st_step_on_cpu() -> dict:
+    """One fp32 S2ST step of small_config() at batch 2 on the card against
+    the same step on the CPU: the same seeded state, the draw
+    RUNS_S2ST_DRAW given (one prefix-masked row) over a two-utterance bank,
+    TF32 off: metrics within 1e-4 relative, gradients held by
+    :func:`_hold_grads`."""
+    from hifigan_tpu_torch.train import s2st_task
+
+    task = s2st_task.S2STTaskConfig(n_utterances=2, batch_size=2)
+    bank = s2st_task.build_s2st_bank(task)
+    states, metrics = {}, {}
+    for dev in ("cuda", "cpu"):
+        states[dev] = s2st_task.create_s2st_state(s2st_task.small_config(), task, torch.float32, dev, seed=1)
+        step = s2st_task.make_s2st_train_step(task, {k: torch.from_numpy(v).to(dev) for k, v in bank.items()})
+        metrics[dev] = step(states[dev], {k: torch.tensor(v) for k, v in RUNS_S2ST_DRAW.items()})[1]
+    err = _loss_err(metrics["cuda"], metrics["cpu"], "S2ST")
+    grads = _hold_grads([(states["cuda"].model, states["cpu"].model)], "S2ST")
+    return {"loss_err": err, "grads": grads, "metrics": {k: float(v) for k, v in metrics["cuda"].items()}}
+
+
+def _changed(module, start: dict) -> int:
+    return sum(not torch.equal(p.detach(), start[n]) for n, p in module.named_parameters())
+
+
+def _check_train_runs(directory: str, generator) -> dict:
+    """The unit-vocoder and S2ST training paths on the card, through
+    ``cli.main`` as a user runs them (TF32 turned on before each command,
+    off after it).
+
+    1. ``cli train-unit-vocoder`` at UnitVocoderTaskConfig() (fp32, the
+       CLI's default) for RUNS_WARMUP + RUNS_TIMED steps from the seeded
+       state, logging every step: finite losses, more than 90% of the
+       parameter tensors changed, no GRC launch, ``code_config.json`` and
+       the last ``<step>.pt`` written; then RUNS_BF16_STEPS steps with
+       ``--bf16`` into another directory: finite losses.
+    2. :func:`_check_uv_step_on_cpu`.
+    3. ``cli train-s2st --eval_samples RUNS_EVAL_SAMPLES`` at
+       small_config() for RUNS_WARMUP + RUNS_TIMED steps: finite losses,
+       ``transition_acc`` in [0, 1], more than 90% of the parameter tensors
+       changed, no GRC launch, ``s2st_eval.json`` with JAX's keys.
+    4. :func:`_check_s2st_step_on_cpu`.
+    5. ``cli eval-s2st --checkpoint_dir <3's run> --unit_vocoder <1's run>``
+       over 2 held-out utterances and two text policies: JAX's report
+       keys, the run's step, no GRC launch.
+    6. ``cli info``: the total is ``generator``'s parameter count.
+    The step times are CUDA events around each step as the commands run
+    it."""
+    import os
+
+    from hifigan_tpu_torch.train import s2st_task as s2st_mod
+    from hifigan_tpu_torch.train import unit_vocoder as uv_mod
+
+    uv_dir, uv16_dir, s2_dir = (f"{directory}/{d}" for d in ("unit_vocoder", "unit_vocoder_bf16", "s2st"))
+    n_steps = RUNS_WARMUP + RUNS_TIMED
+    uv_task = uv_mod.UnitVocoderTaskConfig()
+    seeded = uv_mod.create_unit_vocoder_state(TrainConfig(warmup_steps=1000), uv_task, torch.float32, "cuda", seed=0)
+    uv_start = {m: {n: p.detach().clone() for n, p in getattr(seeded, m).named_parameters()}
+                for m in ("vocoder", "discriminators")}
+    del seeded
+    uv_steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _timed_steps(uv_mod, "make_unit_vocoder_train_step", uv_steps):
+        _cli(["train-unit-vocoder", "--device", "cuda", "--checkpoint_dir", uv_dir, "--dataset_size",
+              str(RUNS_UV_DATASET), "--max_steps", str(n_steps), "--log_every", "1"])
+    torch.cuda.synchronize()
+    uv_wall = time.perf_counter() - t0
+    uv_peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    uv_launches = dict(grc_kernel.launches)
+    uv_rows = _metrics_rows(uv_dir)
+    uv_state = uv_steps[-1]["state"]
+    uv_changed = {m: _changed(getattr(uv_state, m), uv_start[m]) for m in uv_start}
+    with open(f"{uv_dir}/code_config.json") as f:
+        code_config = json.load(f)
+    if (len(uv_rows) != n_steps or any(uv_launches.values())
+            or not all(math.isfinite(v) for r in uv_rows for v in r.values())
+            or not {"generator_loss", "discriminator_loss", "adv_loss", "fm_loss", "mel_loss", "dur_loss",
+                    "stft_loss"} <= set(uv_rows[0])):
+        raise AssertionError(f"cli train-unit-vocoder: rows {uv_rows}, GRC launches {uv_launches}")
+    if any(n <= 0.9 * len(uv_start[m]) for m, n in uv_changed.items()):
+        raise AssertionError(f"cli train-unit-vocoder changed only {uv_changed} tensors")
+    if code_config != json.loads(json.dumps(dataclasses.asdict(uv_task.code))) or not os.path.exists(
+            f"{uv_dir}/{n_steps}.pt"):
+        raise AssertionError(f"cli train-unit-vocoder wrote {code_config} and {sorted(os.listdir(uv_dir))}")
+    _reset_launches()
+    _cli(["train-unit-vocoder", "--device", "cuda", "--bf16", "--checkpoint_dir", uv16_dir, "--dataset_size",
+          str(RUNS_UV_DATASET), "--max_steps", str(RUNS_BF16_STEPS), "--log_every", "1"])
+    uv16_rows = _metrics_rows(uv16_dir)
+    if (len(uv16_rows) != RUNS_BF16_STEPS or any(grc_kernel.launches.values())
+            or not all(math.isfinite(v) for r in uv16_rows for v in r.values())):
+        raise AssertionError(f"cli train-unit-vocoder --bf16: rows {uv16_rows}, GRC launches {grc_kernel.launches}")
+    uv_check = _check_uv_step_on_cpu()
+
+    s2_steps = []
+    seeded = s2st_mod.create_s2st_state(s2st_mod.small_config(), s2st_mod.S2STTaskConfig(), torch.float32, "cuda",
+                                        seed=0)
+    s2_start = {n: p.detach().clone() for n, p in seeded.model.named_parameters()}
+    del seeded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _timed_steps(s2st_mod, "make_s2st_train_step", s2_steps), contextlib.redirect_stdout(io.StringIO()) as out:
+        _cli(["train-s2st", "--device", "cuda", "--checkpoint_dir", s2_dir, "--dataset_size",
+              str(RUNS_S2ST_DATASET), "--eval_samples", str(RUNS_EVAL_SAMPLES), "--max_steps", str(n_steps),
+              "--log_every", "1"])
+    torch.cuda.synchronize()
+    s2_wall = time.perf_counter() - t0
+    s2_peak_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    s2_launches = dict(grc_kernel.launches)
+    s2_rows = _metrics_rows(s2_dir)
+    s2_state = s2_steps[-1]["state"]
+    s2_changed = _changed(s2_state.model, s2_start)
+    with open(f"{s2_dir}/s2st_eval.json") as f:
+        s2_eval = json.load(f)
+    if (len(s2_rows) != n_steps or any(s2_launches.values())
+            or not all(math.isfinite(v) for r in s2_rows for v in r.values())
+            or not all(0.0 <= r["transition_acc"] <= 1.0 for r in s2_rows)):
+        raise AssertionError(f"cli train-s2st: rows {s2_rows}, GRC launches {s2_launches}")
+    if s2_changed <= 0.9 * len(s2_start):
+        raise AssertionError(f"cli train-s2st changed only {s2_changed} of {len(s2_start)} tensors")
+    if (set(s2_eval) != S2ST_EVAL_KEYS or s2_eval["n"] != RUNS_EVAL_SAMPLES or s2_eval["step"] != n_steps
+            or json.loads(out.getvalue().strip().splitlines()[-1]) != s2_eval):
+        raise AssertionError(f"cli train-s2st's s2st_eval.json: {s2_eval}")
+    s2_check = _check_s2st_step_on_cpu()
+
+    report_path = f"{directory}/eval_s2st.json"
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _cli(["eval-s2st", "--device", "cuda", "--checkpoint_dir", s2_dir, "--unit_vocoder", uv_dir, "--samples",
+              "2", "--policies", "offline_greedy,stride1_greedy", "--speech_policies", "stride1", "--output",
+              report_path])
+    es_wall = time.perf_counter() - t0
+    with open(report_path) as f:
+        es_report = json.load(f)
+    if (set(es_report) != EVAL_S2ST_REPORT_KEYS or es_report["restored_step"] != n_steps
+            or es_report["checkpoint_dir"] != s2_dir or any(grc_kernel.launches.values())
+            or set(es_report["policies"]) != {"offline_greedy", "stride1_greedy"}):
+        raise AssertionError(f"cli eval-s2st over the run directories: {es_report}, GRC launches "
+                             f"{grc_kernel.launches}")
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        _cli(["info"])
+    info = json.loads(out.getvalue())
+    n_gen = sum(p.numel() for p in generator.parameters())
+    if set(info) != {"total_parameters", "parameter_mb", "per_module_parameters"} or info["total_parameters"] != n_gen:
+        raise AssertionError(f"cli info printed {info}; the generator has {n_gen} parameters")
+    return {"uv_rows": uv_rows, "uv16_rows": uv16_rows, "uv_ms": [r["ms"] for r in uv_steps], "uv_wall": uv_wall,
+            "uv_peak_mib": uv_peak_mib, "uv_changed": uv_changed, "uv_check": uv_check,
+            "uv_trace": uv_steps[-1], "s2_rows": s2_rows, "s2_ms": [r["ms"] for r in s2_steps], "s2_wall": s2_wall,
+            "s2_peak_mib": s2_peak_mib, "s2_changed": s2_changed, "s2_tensors": len(s2_start), "s2_eval": s2_eval,
+            "s2_check": s2_check, "s2_trace": s2_steps[-1], "es_report": es_report, "es_wall": es_wall,
+            "info": info}
+
+
+def _report_train_runs(runs: dict, card: str) -> None:
+    """Print phase 12's ``train_runs:`` and ``timing_train_runs:`` lines."""
+    uv_ms = statistics.median(runs["uv_ms"][RUNS_WARMUP:])
+    s2_ms = statistics.median(runs["s2_ms"][RUNS_WARMUP:])
+    uv_task_cfg = UnitVocoderTaskConfig()
+    s2_task_cfg = S2STTaskConfig()
+    last = lambda rows: {k: float(f"{v:.4g}") for k, v in rows[-1].items() if k not in ("step", "wall_s")}  # noqa: E731
+    fmt = lambda d: json.dumps({k: (float(f"{v:.3g}") if isinstance(v, float) else v) for k, v in d.items()})  # noqa: E731
+    print(f"train_runs: cli train-unit-vocoder UnitVocoderTaskConfig() fp32 ({uv_task_cfg.batch_size} x "
+          f"{uv_task_cfg.window_units} units = {uv_task_cfg.window_samples} samples a step, {RUNS_UV_DATASET} "
+          f"utterances), {RUNS_WARMUP + RUNS_TIMED} steps: losses finite, last row {json.dumps(last(runs['uv_rows']))}, "
+          f"parameter tensors changed {runs['uv_changed']}, 0 GRC launches, code_config.json and "
+          f"{RUNS_WARMUP + RUNS_TIMED}.pt written; --bf16 {RUNS_BF16_STEPS} steps finite "
+          + json.dumps([round(r["generator_loss"], 4) for r in runs["uv16_rows"]])
+          + f"; fp32 unit-vocoder step card vs CPU at 1 x {runs['uv_check']['samples']} samples (the CLI's loss "
+          f"weights, STFT included): max loss rel err {runs['uv_check']['loss_err']:.3g} (tol 1e-4), gradients (tol "
+          f"{PIPE_GRAD_FRAC} of each leaf's peak, {PIPE_GRAD_L2} in L2) " + fmt(runs["uv_check"]["grads"])
+          + f"; cli train-s2st small_config() fp32 ({s2_task_cfg.batch_size} x {s2_task_cfg.n_frames} frames, "
+          f"{RUNS_S2ST_DATASET} utterances), {RUNS_WARMUP + RUNS_TIMED} steps: last row "
+          f"{json.dumps(last(runs['s2_rows']))}, parameter tensors changed {runs['s2_changed']} of "
+          f"{runs['s2_tensors']}, 0 GRC launches, s2st_eval.json {json.dumps(runs['s2_eval'])}; fp32 S2ST step card "
+          f"vs CPU at batch 2: max loss rel err {runs['s2_check']['loss_err']:.3g} (tol 1e-4), gradients "
+          + fmt(runs["s2_check"]["grads"])
+          + f"; cli eval-s2st --checkpoint_dir --unit_vocoder over 2 utterances: keys JAX's, restored step "
+          f"{runs['es_report']['restored_step']}, 0 GRC launches, policies {json.dumps(runs['es_report']['policies'])}; "
+          f"cli info total_parameters {runs['info']['total_parameters']} ({runs['info']['parameter_mb']} MB) = the "
+          f"generator's")
+    uv_audio_s = uv_task_cfg.batch_size * uv_task_cfg.window_samples / 16000
+    s2_audio_s = s2_task_cfg.batch_size * s2_task_cfg.max_seconds
+    print(f"timing_train_runs: {card}; train-unit-vocoder step (fp32) median "
+          f"{uv_ms:.3f} ms over {RUNS_TIMED} after {RUNS_WARMUP} ({json.dumps([round(t, 3) for t in runs['uv_ms']])} "
+          f"ms), {uv_audio_s / uv_ms * 1e3:.1f} audio-s trained a second, peak device memory "
+          f"{runs['uv_peak_mib']:.1f} MiB above what was held before it, command {runs['uv_wall']:.2f} s wall; "
+          f"train-s2st step (fp32) median {s2_ms:.3f} ms ({json.dumps([round(t, 3) for t in runs['s2_ms']])} ms), "
+          f"{s2_audio_s / s2_ms * 1e3:.1f} source audio-s trained a second, peak device memory "
+          f"{runs['s2_peak_mib']:.1f} MiB, command {runs['s2_wall']:.2f} s wall (held-out eval included); "
+          f"cli eval-s2st over the run directories {runs['es_wall']:.2f} s wall")
 
 
 def _hmt_stacks() -> tuple[S2STInference, S2STInference]:
@@ -1825,7 +2127,15 @@ def main() -> int:
           f"trained a second, command {pipe['clone_wall']:.2f} s wall, peak device memory "
           f"{pipe['clone_peak_mib']:.1f} MiB above what was held before it")
 
-    # 12. traces: where the device time goes, in the forward, the cloning call,
+    # 12. the unit-vocoder and S2ST training paths: cli train-unit-vocoder,
+    # cli train-s2st with the held-out token F1, cli eval-s2st over their run
+    # directories and cli info, through cli.main, checked and timed before any
+    # trace
+    with tempfile.TemporaryDirectory() as directory:
+        runs = _check_train_runs(directory, models[torch.float32])
+    _report_train_runs(runs, smi.stdout.strip().splitlines()[0])
+
+    # 13. traces: where the device time goes, in the forward, the cloning call,
     # a train step and an S2ST session.  Last, after every timing: once the
     # profiler has traced the card, the host's launches may stay slower.
     with torch.no_grad():
@@ -1860,6 +2170,19 @@ def main() -> int:
         raise AssertionError(f"the traced cloning train step launched the GRC kernels {grc_kernel.launches}")
     print("trace: " + json.dumps({"call": "cloning_train_step", **clone_trace}))
     del pipe
+    _reset_launches()
+    rec = runs["uv_trace"]
+    uv_gen = torch.Generator(device="cuda").manual_seed(5)
+    uv_trace = _trace(lambda: rec["step"](rec["state"], uv_gen, rec["args"][1]), calls=1)
+    rec = runs["s2_trace"]
+    s2_gen = torch.Generator(device="cuda").manual_seed(5)
+    s2_trace = _trace(lambda: rec["step"](rec["state"], s2_gen), calls=1)
+    if any(grc_kernel.launches.values()):
+        raise AssertionError(f"the traced unit-vocoder and S2ST train steps launched the GRC kernels "
+                             f"{grc_kernel.launches}")
+    print("trace: " + json.dumps({"call": "unit_vocoder_train_step", **uv_trace}))
+    print("trace: " + json.dumps({"call": "s2st_train_step", **s2_trace}))
+    del runs, rec
     with torch.no_grad():
         after_ms = _time_ms(lambda: model(mel, spk, emo))
     print(f"timing_after_trace: the bf16 forward again, after the profiler: {after_ms:.3f} ms (before it, "

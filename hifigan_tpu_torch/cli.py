@@ -1,5 +1,6 @@
 """Command-line interface of the port: ``train``, ``train-encoders``,
-``train-clone``, ``eval``, ``eval-clone``, ``eval-s2st`` and ``simulate``.
+``train-clone``, ``train-unit-vocoder``, ``train-s2st``, ``eval``,
+``eval-clone``, ``eval-s2st``, ``simulate`` and ``info``.
 
     python -m hifigan_tpu_torch.cli train --max_steps 1000 --checkpoint_dir ckpt [--bf16]
     python -m hifigan_tpu_torch.cli train --tiny --device cpu --max_steps 2 --checkpoint_dir /tmp/t
@@ -7,12 +8,16 @@
     python -m hifigan_tpu_torch.cli train --data_dir wavs/ --augment
     python -m hifigan_tpu_torch.cli train-encoders --checkpoint_dir enc [--spk_pair_weight 0.5]
     python -m hifigan_tpu_torch.cli train-clone --checkpoint_dir clone --encoders enc/encoders.pt [--init_from ckpt]
+    python -m hifigan_tpu_torch.cli train-unit-vocoder --checkpoint_dir uv [--bf16] [--resume]
+    python -m hifigan_tpu_torch.cli train-s2st --checkpoint_dir s2st [--eval_samples 32] [--resume]
     python -m hifigan_tpu_torch.cli eval [--checkpoint_dir ckpt] [--encoders enc.pt] [--asr judge.pt]
     python -m hifigan_tpu_torch.cli eval --tiny --device cpu
     python -m hifigan_tpu_torch.cli eval-clone --checkpoint_dir ckpt --encoders enc.pt
-    python -m hifigan_tpu_torch.cli eval-s2st --checkpoint s2st.pt --asr judge.pt [--samples 8]
-    python -m hifigan_tpu_torch.cli simulate --agent s2st [--audio in.wav] [--checkpoint s2st.pt]
+    python -m hifigan_tpu_torch.cli eval-s2st --checkpoint_dir s2st --unit_vocoder uv --asr judge.pt [--samples 8]
+    python -m hifigan_tpu_torch.cli eval-s2st --checkpoint s2st.pt --asr judge.pt
+    python -m hifigan_tpu_torch.cli simulate --agent s2st [--audio in.wav] [--checkpoint_dir s2st --unit_vocoder uv]
     python -m hifigan_tpu_torch.cli simulate --tiny --device cpu [--decode hmt --hmt_transition learned]
+    python -m hifigan_tpu_torch.cli info [--device cpu]
 
 Counterpart of ``hifigan_tpu/cli.py``'s commands of the same names, on the
 card unless ``--device cpu``.  Every command runs cuDNN and cuBLAS without
@@ -32,6 +37,12 @@ labels and writes ``encoders.pt`` at the end; ``train-clone`` trains the
 cloning vocoder on parallel speaker pairs (optionally with the frozen
 judge's identity loss), logging the eval-protocol probe's
 ``probe_eval_cos`` and ``probe_verified`` at each log step.
+``train-unit-vocoder`` GAN-trains the CodeHiFiGAN unit vocoder on
+translated renditions, ``train-s2st`` the StreamSpeech stack on the
+paired toy-translation task (and reports the held-out token F1); each
+writes its config (``code_config.json``, ``streamspeech_config.json``),
+``metrics.jsonl`` and ``<step>.pt`` train states: the run directories
+that ``eval-s2st`` and ``simulate`` read.
 
 ``eval`` synthesises held-out formant-corpus utterances (or synthetic
 rows) with the fp32 cloning vocoder at ``TrainConfig()`` widths and writes
@@ -50,23 +61,26 @@ formant-corpus utterances: per text policy (greedy under three strides,
 wait-k, the HMT beam under the confidence and the learned gate, and the
 offline anchor) the token F1 and Average Lagging, and per speech policy
 the ASR-BLEU of the output speech when a CTC judge passes its gate.  It
-reads ``--checkpoint``, a :func:`~hifigan_tpu_torch.weights.save_s2st_checkpoint`
-file that carries both the S2ST model and the unit vocoder, where JAX
-reads ``--checkpoint_dir`` and ``--unit_vocoder`` orbax runs, and
-``--asr``, a ``weights.save_ctc_judge`` file.
+reads JAX's ``--checkpoint_dir`` (a ``train-s2st`` run) and
+``--unit_vocoder`` (a ``train-unit-vocoder`` run), or ``--checkpoint``, a
+:func:`~hifigan_tpu_torch.weights.save_s2st_checkpoint` file that carries
+both models, and ``--asr``, a ``weights.save_ctc_judge`` file.
 
 ``simulate`` runs one streaming session of an agent over an utterance and
 prints JAX's JSON summary.  Its models are the seeded full-width pair
-(``--tiny``: tiny widths), or those of ``--checkpoint``; then the text is
-detokenised to phone names and, without ``--audio``, the utterance is the
-held-out formant-corpus one that ``--seed`` selects (else a row of the
-synthetic dataset).  The JAX package's orbax checkpoints are carried over
-with ``load_jax_params``.
+(``--tiny``: tiny widths), or those of ``--checkpoint`` or
+``--checkpoint_dir`` / ``--unit_vocoder``; then the text is detokenised to
+phone names and, without ``--audio``, the utterance is the held-out
+formant-corpus one that ``--seed`` selects (else a row of the synthetic
+dataset).  ``info`` prints the flagship generator's parameter breakdown.
+The JAX package's orbax checkpoints are carried over with
+``load_jax_params`` and the ``load_jax_*_state`` functions.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import itertools
 import json
@@ -101,6 +115,36 @@ def _prune_metrics(metrics_path: str, resume_step: int) -> None:
     with open(tmp, "w") as f:
         f.writelines(kept)
     os.replace(tmp, metrics_path)
+
+
+def _run_steps(args, state, mgr, step_fn, seed_offset: int, summary, *step_args) -> tuple[int, float]:
+    """Step ``state`` up to ``--max_steps``, ``--steps_per_call`` steps a
+    call of ``step_fn(state, gen, *step_args)``, ``gen`` a ``torch.Generator``
+    on the state's device seeded from ``--seed + seed_offset`` and the steps
+    done; a row of metrics in ``metrics.jsonl`` every ``--log_every`` steps
+    (logged as ``summary(row)``; rows past a resumed step pruned first), a
+    checkpoint at ``mgr``'s interval and at the end.  Returns the steps
+    done and the wall seconds."""
+    spc = max(1, args.steps_per_call)
+    metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
+    steps_done = state.step
+    t0 = time.time()
+    _prune_metrics(metrics_path, steps_done)
+    with open(metrics_path, "a") as mf:
+        while steps_done < args.max_steps:
+            gen = torch.Generator(state.device).manual_seed(((args.seed + seed_offset) << 32) + steps_done)
+            state, m = step_fn(state, gen, *step_args)
+            steps_done += spc
+            if steps_done % args.log_every < spc:
+                rec = {k: float(v) for k, v in m.items()}
+                rec.update(step=steps_done, wall_s=round(time.time() - t0, 1))
+                mf.write(json.dumps(rec) + "\n")
+                mf.flush()
+                log.info("step %d: %s", steps_done, summary(rec))
+            mgr.save(state)
+    mgr.save(state, force=True)
+    mgr.wait()
+    return steps_done, time.time() - t0
 
 
 def _config(args):
@@ -305,35 +349,17 @@ def cmd_train_encoders(args) -> None:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     state = create_encoder_state(cfg, dtype, device, seed=args.seed)
     step_fn = make_encoder_train_step(cfg, torch.from_numpy(bank_np).to(device), lens_np, spk_np, bin_np)
-    spc = max(1, args.steps_per_call)
-    fused = make_fused_encoder_step(step_fn, spc)
+    fused = make_fused_encoder_step(step_fn, max(1, args.steps_per_call))
     mgr = CheckpointManager(args.checkpoint_dir, save_interval=args.save_steps)
     if args.resume and mgr.latest_step() is not None:
         mgr.restore(state)
         log.info("resumed from step %d", state.step)
-    metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
-    steps_done = state.step
-    t0 = time.time()
-    _prune_metrics(metrics_path, steps_done)
-    with open(metrics_path, "a") as mf:
-        while steps_done < args.max_steps:
-            gen = torch.Generator(device).manual_seed(((args.seed + 1) << 32) + steps_done)
-            state, m = fused(state, gen)
-            steps_done += spc
-            if steps_done % args.log_every < spc:
-                rec = {k: float(v) for k, v in m.items()}
-                rec.update(step=steps_done, wall_s=round(time.time() - t0, 1))
-                mf.write(json.dumps(rec) + "\n")
-                mf.flush()
-                log.info("step %d: spk_loss=%.3f spk_acc=%.3f pair_cos=%.3f emo_loss=%.3f emo_acc=%.3f near=%.3f",
-                         steps_done, rec["speaker_loss"], rec["speaker_acc"], rec["speaker_pair_cos"],
-                         rec["emotion_loss"], rec["emotion_acc"], rec["emotion_acc_near"])
-            mgr.save(state)
-    mgr.save(state, force=True)
-    mgr.wait()
+    steps_done, wall = _run_steps(args, state, mgr, fused, 1, lambda r: (
+        f"spk_loss={r['speaker_loss']:.3f} spk_acc={r['speaker_acc']:.3f} pair_cos={r['speaker_pair_cos']:.3f} "
+        f"emo_loss={r['emotion_loss']:.3f} emo_acc={r['emotion_acc']:.3f} near={r['emotion_acc_near']:.3f}"))
     save_encoder_checkpoint(os.path.join(args.checkpoint_dir, "encoders.pt"), cfg, state.ecapa, state.emo,
                             step=steps_done)
-    log.info("encoder training done at step %d (%.0f s)", steps_done, time.time() - t0)
+    log.info("encoder training done at step %d (%.0f s)", steps_done, wall)
 
 
 def cmd_train_clone(args) -> None:
@@ -469,6 +495,115 @@ def cmd_train_clone(args) -> None:
     mgr.save(state, force=True)
     mgr.wait()
     log.info("cloning training done at step %d (%.0f s)", steps_done, time.time() - t0)
+
+
+def cmd_train_unit_vocoder(args) -> None:
+    """GAN-train the CodeHiFiGAN unit vocoder on translated renditions
+    (:mod:`hifigan_tpu_torch.train.unit_vocoder`), the bank of rendered
+    utterances in device memory.  Writes ``code_config.json``,
+    ``metrics.jsonl`` and ``<step>.pt`` train states."""
+    from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.models.code_vocoder import CodeVocoderConfig
+    from hifigan_tpu_torch.train import LossWeights, TrainConfig
+    from hifigan_tpu_torch.train.checkpoint import CheckpointManager
+    from hifigan_tpu_torch.train.unit_vocoder import (
+        UnitVocoderTaskConfig,
+        build_unit_vocoder_bank,
+        create_unit_vocoder_state,
+        make_unit_vocoder_train_step,
+    )
+
+    device = resolve_device(args.device)
+    tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=1000, loss_weights=LossWeights(
+        feature_matching=args.fm_weight, mel=args.mel_weight, multi_res_stft=args.stft_weight))
+    task = UnitVocoderTaskConfig(n_utterances=args.dataset_size, batch_size=args.batch_size)
+    if args.tiny:
+        task = UnitVocoderTaskConfig(
+            n_utterances=8, n_speakers=4, max_units=48, window_units=8, batch_size=2,
+            code=CodeVocoderConfig(unit_vocab_size=32, embed_dim=16, upsample_factors=(4, 2), hidden_channels=32,
+                                   max_duration_per_unit=4))
+    bank_np = build_unit_vocoder_bank(task)
+    bank = {k: torch.from_numpy(v).to(device) for k, v in bank_np.items()}
+    log.info("unit-vocoder bank: %d translated utterances (%.0f MB)", bank_np["wav"].shape[0],
+             bank_np["wav"].nbytes / 1e6)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state = create_unit_vocoder_state(tcfg, task, dtype, device, seed=args.seed)
+    step_fn = make_unit_vocoder_train_step(tcfg, task, multi_steps=max(1, args.steps_per_call))
+    mgr = CheckpointManager(args.checkpoint_dir, save_interval=args.save_steps)
+    if args.resume and mgr.latest_step() is not None:
+        mgr.restore(state)
+        log.info("resumed from step %d", state.step)
+    with open(os.path.join(args.checkpoint_dir, "code_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(task.code), f, indent=2)
+    steps_done, wall = _run_steps(args, state, mgr, step_fn, 4, lambda r: (
+        f"G={r['generator_loss']:.3f} D={r['discriminator_loss']:.3f} mel={r['mel_loss']:.3f} "
+        f"dur={r['dur_loss']:.3f}"), bank)
+    log.info("unit-vocoder training done at step %d (%.0f s)", steps_done, wall)
+
+
+def cmd_train_s2st(args) -> None:
+    """Multitask training of the StreamSpeech stack on the corpus's paired
+    toy-translation task (:mod:`hifigan_tpu_torch.train.s2st_task`), the
+    bank in device memory.  Writes ``streamspeech_config.json`` (with the
+    feature revision), ``metrics.jsonl`` and ``<step>.pt`` train states;
+    with ``--eval_samples`` the held-out token F1 of a greedy decode in
+    ``s2st_eval.json``, also printed."""
+    from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.models.streamspeech import FEATURE_REV
+    from hifigan_tpu_torch.train.checkpoint import CheckpointManager
+    from hifigan_tpu_torch.train.s2st_task import (
+        S2STTaskConfig,
+        build_s2st_bank,
+        create_s2st_state,
+        evaluate_token_f1,
+        make_s2st_train_step,
+        small_config,
+    )
+
+    device = resolve_device(args.device)
+    task = S2STTaskConfig(n_utterances=args.dataset_size, batch_size=args.batch_size, learning_rate=args.lr,
+                          max_seconds=args.max_seconds, prefix_mask_prob=args.prefix_mask_prob,
+                          prefix_min_frac=args.prefix_min_frac)
+    model_cfg = small_config()
+    if args.tiny:
+        model_cfg = replace(model_cfg, hidden_dim=32, encoder_layers=1, decoder_layers=1, num_heads=4)
+        task = replace(task, n_utterances=max(8, args.batch_size * 2))
+    bank_np = build_s2st_bank(task)
+    bank = {k: torch.from_numpy(v).to(device) for k, v in bank_np.items()}
+    log.info("s2st bank: %d paired utterances (%.0f MB audio)", bank_np["audio"].shape[0],
+             bank_np["audio"].nbytes / 1e6)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state = create_s2st_state(model_cfg, task, dtype, device, seed=args.seed)
+    step_fn = make_s2st_train_step(task, bank, multi_steps=max(1, args.steps_per_call))
+    mgr = CheckpointManager(args.checkpoint_dir, save_interval=args.save_steps)
+    if args.resume and mgr.latest_step() is not None:
+        mgr.restore(state)
+        log.info("resumed from step %d", state.step)
+    with open(os.path.join(args.checkpoint_dir, "streamspeech_config.json"), "w") as f:
+        json.dump({**dataclasses.asdict(model_cfg), "_feature_rev": FEATURE_REV}, f, indent=2)
+    steps_done, _ = _run_steps(args, state, mgr, step_fn, 3, lambda r: (
+        f"loss={r['loss']:.3f} src={r['src_ctc']:.3f} tgt={r['tgt_ctc']:.3f} dec={r['dec_ce']:.3f} "
+        f"unit={r['unit_ctc']:.3f} acc={r['dec_acc']:.3f}"))
+    if args.eval_samples:
+        held = build_s2st_bank(replace(task, n_utterances=args.eval_samples), idx_offset=1_000_000)
+        report = evaluate_token_f1(state.model.eval(), task, held)
+        report["step"] = steps_done
+        with open(os.path.join(args.checkpoint_dir, "s2st_eval.json"), "w") as f:
+            json.dump(report, f, indent=2)
+        log.info("held-out token F1 %.3f exact %.3f (n=%d)", report["token_f1"], report["exact_match"], report["n"])
+        print(json.dumps(report))
+
+
+def cmd_info(args) -> None:
+    """The flagship generator's (``GeneratorConfig()``) parameter count,
+    size and per-module breakdown, as JAX's ``cli info`` prints them."""
+    from hifigan_tpu_torch.entry import build_generator
+    from hifigan_tpu_torch.models.generator import GeneratorConfig
+    from hifigan_tpu_torch.utils import model_info
+
+    cfg = GeneratorConfig()
+    info = model_info(build_generator(cfg, torch.float32, args.device, seed=0), cfg)
+    print(json.dumps({k: info[k] for k in ("total_parameters", "parameter_mb", "per_module_parameters")}, indent=2))
 
 
 # where the port's files live beside the JAX package's trained runs, best first
@@ -690,6 +825,42 @@ def _phone_detokenizer(ids) -> str:
                     for i in ids)
 
 
+def _s2st_stack(args, device):
+    """``(model, code_vocoder, step, source)`` of ``eval-s2st``'s and
+    ``simulate``'s flags: ``--checkpoint`` (one ``save_s2st_checkpoint``
+    file: both models) or ``--checkpoint_dir`` (a ``train-s2st`` run) with
+    ``--unit_vocoder`` (a ``train-unit-vocoder`` run; without one, no unit
+    vocoder); giving both checkpoint flags is an error.  With neither,
+    ``(None, None, None, None)``."""
+    from hifigan_tpu_torch.weights import (
+        load_s2st_checkpoint,
+        load_s2st_run,
+        load_unit_vocoder_run,
+        read_s2st_step,
+    )
+
+    if args.checkpoint and args.checkpoint_dir:
+        raise SystemExit("pass --checkpoint (one save_s2st_checkpoint file) or --checkpoint_dir (a train-s2st run), "
+                         "not both")
+    if args.unit_vocoder and not args.checkpoint_dir:
+        raise SystemExit("--unit_vocoder goes with --checkpoint_dir (a --checkpoint file carries its unit vocoder)")
+    if args.checkpoint_dir:
+        model, step = load_s2st_run(args.checkpoint_dir, device)
+        log.info("s2st stack: %s step %d", args.checkpoint_dir, step)
+        code_vocoder = None
+        if args.unit_vocoder:
+            code_vocoder, uv_step = load_unit_vocoder_run(args.unit_vocoder, device)
+            log.info("unit vocoder: %s step %d", args.unit_vocoder, uv_step)
+        return model, code_vocoder, step, args.checkpoint_dir
+    path = args.checkpoint
+    if path is None:
+        return None, None, None, None
+    model, code_vocoder = load_s2st_checkpoint(path, device)
+    step = read_s2st_step(path)
+    log.info("s2st stack: %s step %d", path, step)
+    return model, code_vocoder, step, path
+
+
 def cmd_eval_s2st(args) -> None:
     """The simultaneous S2ST evaluation over held-out formant utterances:
     each text policy's token F1 and Average Lagging, and each speech
@@ -704,16 +875,13 @@ def cmd_eval_s2st(args) -> None:
     from hifigan_tpu_torch.streaming.runtime import S2STInference, S2STInferenceConfig
     from hifigan_tpu_torch.train.corpus import PHONES, FormantSpeechCorpus, plan_phone_ids
     from hifigan_tpu_torch.train.s2st_task import token_f1, translate
-    from hifigan_tpu_torch.weights import load_s2st_checkpoint, read_s2st_step
-
     device = resolve_device(args.device)
-    if args.checkpoint is None:
+    if args.checkpoint is None and args.checkpoint_dir is None:
         args.checkpoint = _first(*S2ST_FILES, exists=os.path.isfile)
         if args.checkpoint is None:
-            raise SystemExit(f"no S2ST checkpoint found (looked for {', '.join(S2ST_FILES)}); pass --checkpoint")
-    model, code_vocoder = load_s2st_checkpoint(args.checkpoint, device)
-    step = read_s2st_step(args.checkpoint)
-    log.info("s2st stack: %s step %d", args.checkpoint, step)
+            raise SystemExit(f"no S2ST checkpoint found (looked for {', '.join(S2ST_FILES)}); pass --checkpoint or "
+                             "--checkpoint_dir")
+    model, code_vocoder, step, source = _s2st_stack(args, device)
     inf = S2STInference(model, code_vocoder, S2STInferenceConfig(max_target_len=64))
     detok = _phone_detokenizer
 
@@ -747,7 +915,7 @@ def cmd_eval_s2st(args) -> None:
         if unknown:
             raise SystemExit(f"unknown policies {sorted(unknown)}; choose from {sorted(policies)}")
         policies = {k: v for k, v in policies.items() if k in keep}
-    report = {"checkpoint_dir": args.checkpoint, "restored_step": step, "policies": {}}
+    report = {"checkpoint_dir": source, "restored_step": step, "policies": {}}
     for name, (cls, kw) in policies.items():
         f1s, als = [], []
         seg_ms = 1_000_000 if name == "offline_greedy" else args.segment_size
@@ -769,7 +937,7 @@ def cmd_eval_s2st(args) -> None:
     sel = judge_gate.get("selected")
     report["asr_judge"] = {
         "dir": sel,
-        "independent": bool(sel) and os.path.realpath(sel) != os.path.realpath(args.checkpoint),
+        "independent": bool(sel) and os.path.realpath(sel) != os.path.realpath(source),
         "gate": judge_gate,
     }
     if asr is None:
@@ -823,31 +991,29 @@ def cmd_simulate(args) -> None:
     from hifigan_tpu_torch.streaming.features import read_wav
     from hifigan_tpu_torch.streaming.runtime import S2STInference
     from hifigan_tpu_torch.train.data import SyntheticSpeechDataset
-    from hifigan_tpu_torch.weights import load_s2st_checkpoint
 
     device = resolve_device(args.device)
-    if args.checkpoint:
-        model, code_vocoder = load_s2st_checkpoint(args.checkpoint, device)
+    model, code_vocoder, _step, trained = _s2st_stack(args, device)
+    if trained:
         inf = S2STInference(model, code_vocoder)
-        log.info("S2ST stack from %s", args.checkpoint)
     else:
         if args.tiny:
             cfg, code = _tiny_s2st_configs()
         else:
             cfg, code = StreamSpeechConfig(), None
-            log.warning("no --checkpoint: simulating with random weights; the output is noise")
+            log.warning("no --checkpoint or --checkpoint_dir: simulating with random weights; the output is noise")
         inf = build_s2st_inference(cfg, code, device=device, seed=0)
     agent_cls = {"asr": agents.ASRAgent, "s2tt": agents.S2TTAgent, "s2st": agents.S2STAgent,
                  "waitk-s2tt": agents.WaitkS2TTAgent, "waitk-s2st": agents.WaitkS2STAgent}[args.agent]
     agent_kw = {}
     if args.agent in ("s2tt", "s2st") and args.decode:
         agent_kw.update(decode=args.decode, hmt_transition=args.hmt_transition)
-    if args.checkpoint:
+    if trained:
         agent_kw["detokenize"] = _phone_detokenizer  # a trained stack speaks phone tokens
     agent = agent_cls(inf, **agent_kw)
     if args.audio:
         audio, sr = read_wav(args.audio)
-    elif args.checkpoint:
+    elif trained:
         # a held-out formant utterance, what the trained stack was trained on
         from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
 
@@ -1006,6 +1172,10 @@ def build_parser() -> argparse.ArgumentParser:
     es.add_argument("--checkpoint", default=None,
                     help="a save_s2st_checkpoint file: the S2ST model and the unit vocoder (default: the first of "
                          f"{', '.join(S2ST_FILES)} that exists)")
+    es.add_argument("--checkpoint_dir", default=None,
+                    help="a train-s2st run: its streamspeech_config.json and newest <step>.pt (not with --checkpoint)")
+    es.add_argument("--unit_vocoder", default=None,
+                    help="a train-unit-vocoder run for the speech rows: its code_config.json and newest <step>.pt")
     es.add_argument("--asr", default=None,
                     help="a save_ctc_judge file for the speech ASR-BLEU (default: the first of "
                          f"{', '.join(JUDGE_FILES)} that passes the gate)")
@@ -1027,12 +1197,61 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--segment_size", type=int, default=320, help="source segment, ms")
     s.add_argument("--tiny", action="store_true", help="tiny widths, seeded weights")
     s.add_argument("--checkpoint", default=None, help="a save_s2st_checkpoint file")
+    s.add_argument("--checkpoint_dir", default=None,
+                   help="a train-s2st run: its streamspeech_config.json and newest <step>.pt (not with --checkpoint)")
+    s.add_argument("--unit_vocoder", default=None,
+                   help="a train-unit-vocoder run: its code_config.json and newest <step>.pt (with --checkpoint_dir; "
+                        "without it the stack has no unit vocoder)")
     s.add_argument("--decode", choices=["greedy", "hmt"], default=None)
     s.add_argument("--hmt_transition", choices=["confidence", "learned"], default="confidence")
     s.add_argument("--seed", type=int, default=0,
                    help="the utterance when no --audio: held-out formant (with --checkpoint) or synthetic row")
     s.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
     s.set_defaults(fn=cmd_simulate)
+
+    tu = sub.add_parser("train-unit-vocoder", help="GAN-train the CodeHiFiGAN unit vocoder on translated renditions")
+    tu.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    tu.add_argument("--checkpoint_dir", default="runs/unit_vocoder")
+    tu.add_argument("--dataset_size", type=int, default=256)
+    tu.add_argument("--batch_size", type=int, default=8)
+    tu.add_argument("--lr", type=float, default=2e-4)
+    tu.add_argument("--max_steps", type=int, default=100000)
+    tu.add_argument("--save_steps", type=int, default=4000)
+    tu.add_argument("--steps_per_call", type=int, default=1, help="optimizer steps per call of the train step")
+    tu.add_argument("--log_every", type=int, default=100)
+    tu.add_argument("--seed", type=int, default=0)
+    tu.add_argument("--bf16", action="store_true")
+    tu.add_argument("--resume", action="store_true")
+    tu.add_argument("--tiny", action="store_true", help="tiny unit vocoder, 8 utterances of 4 speakers")
+    tu.add_argument("--fm_weight", type=float, default=2.0)
+    tu.add_argument("--mel_weight", type=float, default=45.0)
+    tu.add_argument("--stft_weight", type=float, default=1.0)
+    tu.set_defaults(fn=cmd_train_unit_vocoder)
+
+    ts = sub.add_parser("train-s2st", help="multitask-train the StreamSpeech stack on the paired toy-translation task")
+    ts.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    ts.add_argument("--checkpoint_dir", default="runs/s2st")
+    ts.add_argument("--dataset_size", type=int, default=512)
+    ts.add_argument("--batch_size", type=int, default=16)
+    ts.add_argument("--max_seconds", type=float, default=4.0)
+    ts.add_argument("--lr", type=float, default=3e-4)
+    ts.add_argument("--max_steps", type=int, default=20000)
+    ts.add_argument("--save_steps", type=int, default=2000)
+    ts.add_argument("--steps_per_call", type=int, default=1, help="optimizer steps per call of the train step")
+    ts.add_argument("--log_every", type=int, default=100)
+    ts.add_argument("--eval_samples", type=int, default=32, help="held-out utterances for the token F1; 0 skips it")
+    ts.add_argument("--prefix_mask_prob", type=float, default=0.5,
+                    help="share of the batch whose decoder cross attention sees a random source prefix only")
+    ts.add_argument("--prefix_min_frac", type=float, default=0.25, help="lower bound of the sampled prefix fraction")
+    ts.add_argument("--seed", type=int, default=0)
+    ts.add_argument("--bf16", action="store_true")
+    ts.add_argument("--resume", action="store_true")
+    ts.add_argument("--tiny", action="store_true", help="tiny model (d 32, one layer each), max(8, 2 x batch) utterances")
+    ts.set_defaults(fn=cmd_train_s2st)
+
+    i = sub.add_parser("info", help="the flagship generator's parameter breakdown")
+    i.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    i.set_defaults(fn=cmd_info)
 
     return p
 

@@ -33,7 +33,7 @@ from hifigan_tpu_torch.models.embeddings import EcapaTdnn, Emotion2Vec
 from hifigan_tpu_torch.ops.stft import MelConfig
 from hifigan_tpu_torch.train.corpus import FormantSpeechCorpus
 from hifigan_tpu_torch.train.state import ScheduledAdam
-from hifigan_tpu_torch.train.train_step import audio_to_mel
+from hifigan_tpu_torch.train.train_step import audio_to_mel, fuse_steps
 
 N_AROUSAL_BINS = 8
 ADAM_BETAS = (0.9, 0.999)  # optax.adam's defaults
@@ -287,22 +287,12 @@ def make_encoder_train_step(
 
 
 def make_fused_encoder_step(step_fn: Callable, multi_steps: int = 1) -> Callable:
-    """``fused(state, batches)``: ``multi_steps`` steps in one call, the
-    metrics the window's means (JAX's ``lax.scan`` and ``tree_map(mean)``).  ``batches``: a ``torch.Generator`` (each step
-    draws its own crops with it) or a list of ``multi_steps`` drawn
-    batches; with ``multi_steps == 1``, whatever ``step_fn`` takes."""
-    if multi_steps <= 1:
-        return step_fn
-
-    def fused(state, batches):
-        if isinstance(batches, torch.Generator):
-            batches = [batches] * multi_steps
-        if len(batches) != multi_steps:
-            raise ValueError(f"{len(batches)} batches for {multi_steps} fused steps")
-        window = [step_fn(state, b)[1] for b in batches]
-        return state, {k: torch.stack([m[k] for m in window]).mean() for k in window[0]}
-
-    return fused
+    """``fused(state, batches)``: ``multi_steps`` encoder steps in one call
+    (:func:`~hifigan_tpu_torch.train.train_step.fuse_steps`).  ``batches``: a
+    ``torch.Generator`` (each step draws its own crops with it) or a list of
+    ``multi_steps`` drawn batches; with ``multi_steps == 1``, whatever
+    ``step_fn`` takes."""
+    return fuse_steps(step_fn, multi_steps)
 
 
 def strip_classifier(params: Mapping) -> dict:

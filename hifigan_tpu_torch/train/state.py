@@ -1,5 +1,5 @@
 """Train state: the vocoder, the discriminators, their two optimisers and
-the step count.
+the step count; optax's warmup-cosine schedule.
 
 Counterpart of ``hifigan_tpu/train/state.py``.  Each optimiser is optax's
 ``chain(clip_by_global_norm?, adam(w)(warmup_cosine_decay_schedule))``
@@ -47,17 +47,25 @@ class TrainConfig:
     emo_heads: int = 8
 
 
-def learning_rate(cfg: TrainConfig, count: int) -> float:
-    """``optax.warmup_cosine_decay_schedule(0, lr, warmup_steps,
-    decay_steps, lr / 100)`` at update ``count`` (0 for the first update):
-    linear from 0 over the warmup, then cosine from lr to lr / 100 over
-    ``decay_steps - warmup_steps`` updates, then flat."""
-    peak, warmup = cfg.learning_rate, cfg.warmup_steps
+def warmup_cosine_decay(count: int, init: float, peak: float, warmup: int, decay: int, end: float) -> float:
+    """``optax.warmup_cosine_decay_schedule(init, peak, warmup, decay, end)``
+    at update ``count`` (0 for the first update): linear from ``init`` to
+    ``peak`` over ``warmup`` updates, then cosine from ``peak`` to ``end``
+    over ``decay - warmup`` updates, then flat at ``end``.  In float64,
+    where optax computes in fp32: the two differ by under one fp32 ulp of
+    ``peak``."""
     if count < warmup:
-        return peak * count / warmup
-    t = min(count - warmup, cfg.decay_steps - warmup) / (cfg.decay_steps - warmup)
-    alpha = 0.01
+        return init + (peak - init) * count / warmup
+    t = min(count - warmup, decay - warmup) / (decay - warmup)
+    alpha = end / peak if peak else 0.0
     return peak * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t)) + alpha)
+
+
+def learning_rate(cfg: TrainConfig, count: int) -> float:
+    """The GAN schedule, ``optax.warmup_cosine_decay_schedule(0, lr,
+    warmup_steps, decay_steps, lr / 100)``, at update ``count``."""
+    return warmup_cosine_decay(count, 0.0, cfg.learning_rate, cfg.warmup_steps, cfg.decay_steps,
+                               cfg.learning_rate / 100)
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
@@ -120,9 +128,12 @@ def make_optimizer(params, cfg: TrainConfig) -> ScheduledAdam:
 @dataclass
 class GanTrainState:
     """Everything a training run carries from step to step; ``state_dict``
-    is what a checkpoint holds."""
+    is what a checkpoint holds.  ``vocoder`` is the generator under
+    training: the ``ModifiedVocoder`` of :func:`create_train_state`, or the
+    unit vocoder's ``CodeVocoder``
+    (:func:`hifigan_tpu_torch.train.unit_vocoder.create_unit_vocoder_state`)."""
 
-    vocoder: ModifiedVocoder
+    vocoder: torch.nn.Module
     discriminators: Discriminators
     gen_opt: ScheduledAdam = field(repr=False)
     disc_opt: ScheduledAdam = field(repr=False)

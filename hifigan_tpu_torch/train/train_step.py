@@ -97,6 +97,26 @@ def generator_losses(discs, real: torch.Tensor, fake: torch.Tensor, fake_mel: to
     return total, metrics
 
 
+def fuse_steps(step: Callable, multi_steps: int = 1) -> Callable:
+    """``fused(state, batches, *args)``: ``multi_steps`` calls of ``step(state,
+    batch, *args)`` in one call, the metrics the window's means (JAX's
+    ``lax.scan`` and ``tree_map(mean)``).  ``batches``: a ``torch.Generator``
+    (each step draws its own batch with it) or a list of ``multi_steps``
+    drawn batches; with ``multi_steps <= 1``, ``step`` itself."""
+    if multi_steps <= 1:
+        return step
+
+    def fused(state, batches, *args):
+        if isinstance(batches, torch.Generator):
+            batches = [batches] * multi_steps
+        if len(batches) != multi_steps:
+            raise ValueError(f"{len(batches)} batches for {multi_steps} fused steps")
+        window = [step(state, b, *args)[1] for b in batches]
+        return state, {k: torch.stack([m[k] for m in window]).mean() for k in window[0]}
+
+    return fused
+
+
 def make_train_step(
     cfg: TrainConfig,
     *,

@@ -7,7 +7,8 @@ res2_kernel_1`` is ``embedding_extractor.ecapa.block_0.res2_kernel_1``)
 and the values copy over unchanged.  One loader serves every module of
 the port: the generator, the encoders, the vocoder facade and the
 discriminators, the S2ST model and the unit vocoder.
-:func:`load_jax_train_state` and :func:`load_jax_encoder_state` carry a
+:func:`load_jax_train_state`, :func:`load_jax_encoder_state`,
+:func:`load_jax_unit_vocoder_state` and :func:`load_jax_s2st_state` carry a
 whole JAX train state, optimisers included.
 
 Also the S2ST stack's configs as the JAX package's trainers write them
@@ -15,7 +16,9 @@ Also the S2ST stack's configs as the JAX package's trainers write them
 ``code_config.json``), and the port's own checkpoints, each one
 ``torch.save`` of configs and state dicts, read strictly: the S2ST pair
 with its training step (what ``cli simulate`` and ``cli eval-s2st``
-``--checkpoint`` read), the judge encoders and the CTC judge (what ``cli
+``--checkpoint`` read), the run directories of ``cli train-s2st`` and
+``cli train-unit-vocoder`` (what they read with ``--checkpoint_dir`` and
+``--unit_vocoder``), the judge encoders and the CTC judge (what ``cli
 eval --encoders`` / ``--asr`` and ``cli eval-clone --encoders`` read).
 """
 
@@ -24,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 from collections.abc import Mapping
 
 import numpy as np
@@ -34,6 +38,7 @@ from hifigan_tpu_torch.models.code_vocoder import CodeVocoder, CodeVocoderConfig
 from hifigan_tpu_torch.models.embeddings import EcapaTdnn, Emotion2Vec
 from hifigan_tpu_torch.models.streamspeech import FEATURE_REV, StreamSpeechConfig, StreamSpeechS2ST
 from hifigan_tpu_torch.ops.stft import MelConfig
+from hifigan_tpu_torch.train.checkpoint import CheckpointManager
 from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, build_models, strip_classifier
 
 log = logging.getLogger("hifigan_tpu_torch")
@@ -151,6 +156,23 @@ def load_jax_encoder_state(state, jax_state):
     return state
 
 
+# The unit vocoder's train state is a GanTrainState (a CodeVocoder, the
+# discriminators, two Adam states): JAX's unit-vocoder state loads as any.
+load_jax_unit_vocoder_state = load_jax_train_state
+
+
+def load_jax_s2st_state(state, jax_state):
+    """Fill the port's ``S2STTrainState`` (``create_s2st_state``) from a JAX
+    one whose leaves are numpy arrays: the model's parameters, the AdamW
+    moments and the update count found inside optax's ``chain(clip,
+    chain(scale_by_adam, add_decayed_weights, scale_by_schedule))`` state
+    (the clip and the decay hold no state; both counts must agree), and
+    ``step``; anything that does not match raises before any value is
+    changed."""
+    _load_jax_state(state, [(state.model, state.opt, jax_state.params, jax_state.opt_state)], jax_state.step)
+    return state
+
+
 def _streamspeech_config(d: Mapping, where: str = "config") -> StreamSpeechConfig:
     """A ``StreamSpeechConfig`` from its fields; a ``_feature_rev`` other
     than :data:`FEATURE_REV` raises, since weights trained under other
@@ -179,6 +201,37 @@ def load_code_config(path: str) -> CodeVocoderConfig:
         d = json.load(f)
     d["upsample_factors"] = tuple(d["upsample_factors"])
     return CodeVocoderConfig(**d)
+
+
+def _newest_step_file(directory: str) -> tuple[str, int]:
+    """The newest ``<step>.pt`` of a run directory and its step."""
+    step = CheckpointManager(directory).latest_step()
+    if step is None:
+        raise FileNotFoundError(f"{directory} holds no <step>.pt checkpoint")
+    return os.path.join(directory, f"{step}.pt"), step
+
+
+def load_s2st_run(directory: str, device: str | torch.device) -> tuple[StreamSpeechS2ST, int]:
+    """``(model, step)`` of a ``cli train-s2st`` run directory: its
+    ``streamspeech_config.json`` (feature revision checked) and the model of
+    its newest ``<step>.pt`` train state (the trainer's tree: the transition
+    head, no vocoder), fp32, in eval mode, on ``device``."""
+    cfg = load_streamspeech_config(os.path.join(directory, "streamspeech_config.json"))
+    path, step = _newest_step_file(directory)
+    model = StreamSpeechS2ST(cfg, gen=torch.Generator().manual_seed(0), with_vocoder=False)
+    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True)["model"])
+    return model.to(device).eval(), step
+
+
+def load_unit_vocoder_run(directory: str, device: str | torch.device) -> tuple[CodeVocoder, int]:
+    """``(code_vocoder, step)`` of a ``cli train-unit-vocoder`` run
+    directory: its ``code_config.json`` and the generator of its newest
+    ``<step>.pt`` train state, fp32, in eval mode, on ``device``."""
+    code_cfg = load_code_config(os.path.join(directory, "code_config.json"))
+    path, step = _newest_step_file(directory)
+    code_vocoder = CodeVocoder(code_cfg, gen=torch.Generator().manual_seed(0))
+    code_vocoder.load_state_dict(torch.load(path, map_location="cpu", weights_only=True)["vocoder"])
+    return code_vocoder.to(device).eval(), step
 
 
 def save_s2st_checkpoint(path: str, model: StreamSpeechS2ST, code_vocoder: CodeVocoder, step: int = 0) -> None:

@@ -189,3 +189,74 @@ def test_cli_simulate_hmt_learned_matches_jax(files, capsys):
     assert got["agent"] == "s2tt" and got["source_seconds"] == want.source_seconds
     assert got["text"] == want.text[:200] and got["text"].strip()
     assert got["writes"] == len(want.outputs) and got["average_lagging_ms"] == round(want.average_lagging_ms, 1)
+
+
+@pytest.fixture(scope="module")
+def run_dirs(tmp_path_factory):
+    """A ``cli train-s2st --tiny`` run and a ``cli train-unit-vocoder
+    --tiny`` run of one step each (the two share 32 units)."""
+    d = tmp_path_factory.mktemp("runs")
+    cli.main(["train-s2st", "--tiny", "--device", "cpu", "--batch_size", "2", "--max_steps", "1", "--eval_samples",
+              "0", "--checkpoint_dir", str(d / "s2st")])
+    cli.main(["train-unit-vocoder", "--tiny", "--device", "cpu", "--max_steps", "1", "--checkpoint_dir",
+              str(d / "uv")])
+    return d
+
+
+def test_cli_eval_s2st_reads_run_directories(files, run_dirs, monkeypatch, capsys):
+    """``eval-s2st --checkpoint_dir <train-s2st run> --unit_vocoder
+    <train-unit-vocoder run>``, with a stand-in judge that passes the gate:
+    JAX's report keys, the run's step as ``restored_step``, the run
+    directory as ``checkpoint_dir``, speech rows voiced by the unit vocoder;
+    the same report (but for ``checkpoint_dir``) as ``--checkpoint`` on a
+    ``save_s2st_checkpoint`` file of the two runs' models."""
+    from hifigan_tpu_torch.eval import asr
+    from hifigan_tpu_torch.weights import load_s2st_run, load_unit_vocoder_run
+
+    heard = []
+
+    def competent(candidates, clips, refs, max_cer=0.4, device="cuda"):
+        def transcribe(wav):
+            heard.append(len(wav))
+            return "a e"
+        return transcribe, {"candidates": [], "selected": candidates[0], "max_cer": max_cer}
+
+    monkeypatch.setattr(asr, "load_competent_ctc", competent)
+    args = ["eval-s2st", "--device", "cpu", "--asr", files["judge"], "--samples", "1", "--policies",
+            "offline_greedy,hmt_learned", "--speech_policies", "stride1"]
+    cli.main([*args, "--checkpoint_dir", str(run_dirs / "s2st"), "--unit_vocoder", str(run_dirs / "uv")])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(report) == {"checkpoint_dir", "restored_step", "policies", "asr_judge", "s2st_speech_tradeoff",
+                           "s2st_asr_bleu"}
+    assert report["restored_step"] == 1 and report["checkpoint_dir"] == str(run_dirs / "s2st")
+    assert len(heard) == 1 and heard[0] > 0
+    model, step = load_s2st_run(str(run_dirs / "s2st"), "cpu")
+    code_vocoder, uv_step = load_unit_vocoder_run(str(run_dirs / "uv"), "cpu")
+    assert step == uv_step == 1 and model.vocoder is None and model.transition_head is not None
+    save_s2st_checkpoint(str(run_dirs / "both.pt"), model, code_vocoder, step=step)
+    cli.main([*args, "--checkpoint", str(run_dirs / "both.pt")])
+    again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {k: v for k, v in again.items() if k != "checkpoint_dir"} == {
+        k: v for k, v in report.items() if k != "checkpoint_dir"}
+
+
+def test_cli_simulate_reads_run_directories(run_dirs, capsys):
+    """``simulate --checkpoint_dir --unit_vocoder``: a trained stack's
+    session (the held-out utterance, phone names) with output speech."""
+    cli.main(["simulate", "--device", "cpu", "--checkpoint_dir", str(run_dirs / "s2st"), "--unit_vocoder",
+              str(run_dirs / "uv")])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["agent"] == "s2st" and got["source_seconds"] > 1 and got["output_samples"] > 0
+
+
+@pytest.mark.parametrize("command,argv,message", [
+    ("eval-s2st", ["--checkpoint", "x.pt", "--checkpoint_dir", "d"], "not both"),
+    ("simulate", ["--checkpoint", "x.pt", "--checkpoint_dir", "d"], "not both"),
+    ("eval-s2st", ["--checkpoint", "x.pt", "--unit_vocoder", "d"], "--unit_vocoder goes with --checkpoint_dir"),
+])
+def test_checkpoint_flags_conflict(command, argv, message, tmp_path):
+    """``--checkpoint`` with ``--checkpoint_dir`` (or ``--unit_vocoder``
+    without ``--checkpoint_dir``) exits with an error before reading any
+    file."""
+    with pytest.raises(SystemExit, match=message):
+        cli.main([command, "--device", "cpu", *argv])

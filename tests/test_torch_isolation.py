@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``hifigan_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, orbax, yaml or the JAX package, and
 the entry points (the generator, the vocoder, the train state, ``cli
-train``, ``cli train-encoders``, ``cli train-clone``, the S2ST model, the
+train``, ``cli train-encoders``, ``cli train-clone``, ``cli
+train-unit-vocoder``, ``cli train-s2st``, ``cli info``, the S2ST model, the
 unit vocoder, the S2ST runtime, ``cli simulate``, ``cli eval``, ``cli
 eval-clone`` and the CTC judge) run on the card unless the caller asks for
 the CPU (``cli eval-s2st`` too)."""
@@ -69,10 +70,12 @@ def test_entry_without_a_card_raises(monkeypatch, tmp_path):
             build()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["simulate", "--tiny"])
-    for command in ("train-encoders", "train-clone"):
+    for command in ("train-encoders", "train-clone", "train-unit-vocoder", "train-s2st"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([command, "--tiny", "--max_steps", "1", "--checkpoint_dir", str(tmp_path / command)])
         assert not (tmp_path / command).exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["info"])
 
 
 def test_entry_on_cpu_runs_the_flagship():
