@@ -132,7 +132,25 @@ Phases, each printing its own line:
      call's peak device memory and device time per kernel family
      (attention, the convolutions' backward, FFT and the optimiser each its
      own), and the device time inside the extractor's and attention's
-     profiler ranges; then the bf16 forward's wall time again.
+     profiler ranges; then 10 synth calls of the serving phase's vocoder
+     route ("serving_synth"); then the bf16 forward's wall time again;
+ 14. serving (run before the traces): the app's StdlibServer, what `cli
+     serve` runs without FastAPI, on port 0 in the background over an engine
+     built with vocoder_checkpoint set to a seeded create_train_state(
+     TrainConfig()) checkpoint written by CheckpointManager, its TTS
+     routing mels through make_vocoder_synth in bf16; the machine has no HF weights (none are fetched), so ASR
+     and MT degrade and
+     SpeechT5's text -> mel stage is given a seeded [256, 80] mel.  Over
+     HTTP: /api/health, /api/models/info (uses_framework_vocoder true),
+     /api/translate/text (the identity fallback), /api/synthesize/text,
+     whose WAV must decode to the direct synth's within one 16-bit PCM step;
+     a synth call and a synthesis request each launch grc_step_bf16 9 times;
+     the synth's kernel path against its plain path at phase 4's bf16
+     tolerance; each of the synth's 9 kernel steps on the path's own inputs
+     at [1, 65536, 32] bf16, and phase 3's seeded steps at that shape,
+     against the plain step with phase 3's limits, which must refuse the
+     step with its MRF taps zeroed on each; the synth call's median time (CUDA events, 25 after
+     warm-up) and a request's wall.
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
@@ -140,17 +158,20 @@ without a CUDA card it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
 import dataclasses
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from dataclasses import replace
 
 import numpy as np
@@ -166,6 +187,11 @@ from hifigan_tpu_torch import (
     create_train_state,
 )
 from hifigan_tpu_torch import cli
+from hifigan_tpu_torch.app.audio import float_to_wav_bytes, wav_bytes_to_float
+from hifigan_tpu_torch.app.config import Settings
+from hifigan_tpu_torch.app.engine import make_vocoder_synth
+from hifigan_tpu_torch.app.offline import OfflineManager
+from hifigan_tpu_torch.app.server import StdlibServer
 from hifigan_tpu_torch.eval.cloning_eval import EVAL_CONTENT_BASE, EVAL_REF_BASE, _pad
 from hifigan_tpu_torch.eval.evaluator import StreamEvaluator
 from hifigan_tpu_torch.models.code_vocoder import CodeVocoder, CodeVocoderConfig
@@ -561,6 +587,13 @@ def _check_extractor_fp32(seed: int) -> float:
     if err > 1e-4:
         raise AssertionError(f"the fp32 extractor on the card differs from the CPU by {err:.3g} > 1e-4")
     return err
+
+
+def _no_taps(pre, mean, inv, gamma, beta, w, bias, slope, *, lo, dilation):
+    """The plain GRC step with the conv taps zeroed: a path that drops the
+    MRF taps, which a kernel check must be able to tell apart."""
+    return grc_kernel.grc_step_reference(pre, mean, inv, gamma, beta, torch.zeros_like(w), bias, slope,
+                                         lo=lo, dilation=dilation)
 
 
 def _reset_launches() -> None:
@@ -1545,6 +1578,148 @@ def _report_train_runs(runs: dict, card: str) -> None:
           f"cli eval-s2st over the run directories {runs['es_wall']:.2f} s wall")
 
 
+# The serving phase: the app's stdlib server (what `cli serve` runs without
+# FastAPI) over an engine whose TTS routes mels through make_vocoder_synth of
+# a seeded create_train_state(TrainConfig()) checkpoint, bf16 (the default).
+# The machine has no HF weights (none are fetched), so the ASR and MT stages degrade (empty
+# transcript, identity translation) and SpeechT5's text -> mel stage is given
+# a seeded [SERVE_FRAMES, 80] mel: 1 x 256 frames = 65,536 samples a call.
+SERVE_FRAMES, SERVE_REQUESTS = 256, 5
+SERVE_PCM_STEP = 1 / 32768  # one 16-bit PCM step as wav_bytes_to_float decodes it
+
+
+def _http(base: str, path: str, payload=None) -> dict:
+    """GET ``path`` (``payload`` None) or POST it as JSON; the JSON reply."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.load(r)
+
+
+def _check_serving(directory: str) -> dict:
+    """Phase 14: a seeded ``create_train_state(TrainConfig())`` written by
+    ``CheckpointManager`` into ``directory`` (the JAX initialisers' draw:
+    with zero speaker and emotion, phase 4's redraw gives a waveform of a
+    few PCM steps, too quiet for the WAV check), the app's
+    ``StdlibServer`` on port 0 in the background over an engine built with
+    ``vocoder_checkpoint`` set to it, then over HTTP: health, models info
+    (the framework vocoder in use), a text translation (the identity
+    fallback) and a synthesis, whose WAV must decode to the direct
+    ``make_vocoder_synth(mel)`` output's WAV within one PCM step; one synth
+    call (and one synthesis request) launches ``grc_step_bf16`` 9 times and
+    nothing else of the GRC family; the kernel path matches the same call
+    through ``grc_step_reference`` within phase 4's bf16 tolerance; each of
+    the synth's 9 kernel steps, on the inputs the path gives it at
+    ``[1, SERVE_FRAMES * 256, 32]`` bf16, and phase 3's seeded steps at that
+    shape pass phase 3's check against the plain step, and that check
+    refuses the plain step with the MRF taps zeroed on every one of those
+    inputs (at this draw dropping the taps moves the waveform by only about
+    the path's tolerance, but most elements of each step's output beyond
+    phase 3's limit).  The
+    server is stopped before this returns; the timed synth and the request
+    are returned for phase 13's trace and the report."""
+    state = create_train_state(TrainConfig(), torch.float32, "cuda", seed=5)
+    state.step = 1
+    CheckpointManager(directory).save(state, force=True)
+    del state
+    base_cfg = Settings()
+    cfg = replace(base_cfg, web=replace(base_cfg.web, port=0),
+                  models=replace(base_cfg.models, vocoder_checkpoint=directory))
+    t0 = time.perf_counter()
+    srv = StdlibServer(cfg=cfg, offline=OfflineManager(os.path.join(directory, "offline")), device="cuda")
+    engine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    make_vocoder_synth(directory, device="cuda")  # the engine's vocoder alone, built again
+    vocoder_s = time.perf_counter() - t0
+    mel = np.random.default_rng(7).standard_normal((SERVE_FRAMES, 80)).astype(np.float32)
+    texts = []
+    srv.engine.tts.text_to_mel = lambda text: texts.append(text) or mel
+    synth = srv.engine.tts.vocoder_synth
+    base = f"http://127.0.0.1:{srv.start(background=True)}"
+    try:
+        health = _http(base, "/api/health")
+        info = _http(base, "/api/models/info")
+        translated = _http(base, "/api/translate/text", {"text": "good morning"})
+        _reset_launches()
+        reply = _http(base, "/api/synthesize/text", {"text": "hola mundo"})
+        request_launches = dict(grc_kernel.launches)
+        walls = []
+        for _ in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            _http(base, "/api/synthesize/text", {"text": "hola mundo"})
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        srv.stop()
+    if health.get("status") != "ok":
+        raise AssertionError(f"/api/health answered {health}")
+    if info["engine"]["tts"]["uses_framework_vocoder"] is not True:
+        raise AssertionError(f"/api/models/info: the TTS does not use the framework vocoder: {info['engine']['tts']}")
+    if translated["translated_text"] != "good morning":
+        raise AssertionError(f"/api/translate/text answered {translated} (expected the identity fallback)")
+    if texts[0] != "hola mundo":
+        raise AssertionError(f"the TTS stage saw {texts[:1]}")
+    mel_in = mel.T[None]
+    _reset_launches()
+    direct = synth(mel_in)
+    launches = dict(grc_kernel.launches)
+    plain = synth(mel_in, step=grc_kernel.grc_step_reference)
+    path_steps = []
+
+    def recording(*args, lo, dilation):
+        out = grc_kernel.grc_step(*args, lo=lo, dilation=dilation)
+        path_steps.append((args, lo, dilation, out))
+        return out
+
+    synth(mel_in, step=recording)
+    expect = {"grc_step_f32": 0, "grc_step_bf16": 9}
+    for what, got in (("a synth call", launches), ("a synthesis request", request_launches)):
+        if got != expect:
+            raise AssertionError(f"{what} launched the GRC kernels {got}, expected {expect}")
+    served, sr = wav_bytes_to_float(base64.b64decode(reply["audio"]))
+    want, _ = wav_bytes_to_float(float_to_wav_bytes(direct))
+    if sr != 16000 or served.shape != (SERVE_FRAMES * 256,) or direct.shape != served.shape:
+        raise AssertionError(f"served WAV {served.shape} at {sr} Hz, direct {direct.shape}")
+    pcm_err = float(np.abs(served - want).max())
+    if pcm_err > SERVE_PCM_STEP:
+        raise AssertionError(f"the served WAV differs from the direct synth's by {pcm_err:.3g} > one PCM step")
+    if not np.isfinite(direct).all() or direct.std() < 32 * SERVE_PCM_STEP:
+        raise AssertionError(f"the synth output is not finite or is flat (std {direct.std():.3g})")
+    kernel_err = float(np.abs(direct - plain).max())
+    kernel_tol = 4 * 2.0 ** -8 * float(np.abs(plain).max())
+    if kernel_err > kernel_tol:
+        raise AssertionError(f"the synth's kernel path differs from its plain path by {kernel_err:.3g} > "
+                             f"{kernel_tol:.3g}")
+    shape = (1, SERVE_FRAMES * 256, C)
+    if len(path_steps) != 9 or any(tuple(a[0].shape) != shape or a[0].dtype != torch.bfloat16
+                                   for a, *_ in path_steps):
+        raise AssertionError(f"the synth ran {len(path_steps)} GRC steps, expected 9 on {shape} bf16")
+    cfg = GeneratorConfig()
+    seeded = [(k, d) for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations) for d in dils]
+    step_worst = {"path": (0.0, 0.0), "seeded": (0.0, 0.0)}
+    with torch.no_grad():
+        checks = [("path", args, lo, dilation, out) for args, lo, dilation, out in path_steps]
+        for i, (k, d) in enumerate(seeded):
+            for normalised in (False, True):
+                args, lo = _step_inputs(k, d, torch.bfloat16, normalised, seed=100 * i + normalised, batch=1,
+                                        length=SERVE_FRAMES * 256)
+                checks.append(("seeded", args, lo, d, grc_kernel.grc_step(*args, lo=lo, dilation=d)))
+        for what, args, lo, dilation, out in checks:
+            want = grc_kernel.grc_step_reference(*args, lo=lo, dilation=dilation)
+            torch.cuda.synchronize()
+            e, r = _check_step(out, want, torch.bfloat16)
+            _check_sees_taps(args, lo, dilation, want, torch.bfloat16)
+            step_worst[what] = (max(step_worst[what][0], e), max(step_worst[what][1], r))
+    with torch.no_grad():
+        synth_ms = _time_ms(lambda: synth(mel_in))
+    return {"synth": synth, "mel": mel_in, "launches": launches, "request_launches": request_launches,
+            "pcm_err": pcm_err, "kernel_err": kernel_err, "kernel_tol": kernel_tol, "step_worst": step_worst,
+            "steps_checked": len(checks),
+            "synth_ms": synth_ms,
+            "request_ms": statistics.median(walls), "request_walls_ms": walls, "engine_s": engine_s,
+            "vocoder_s": vocoder_s,
+            "peak": float(np.abs(direct).max()), "std": float(direct.std())}
+
+
 def _hmt_stacks() -> tuple[S2STInference, S2STInference]:
     """The seeded S2ST3_CONFIG stack and UNIT_VOCODER_CONFIG unit vocoder,
     fp32, on the card and (the same weights) on the CPU."""
@@ -1768,21 +1943,21 @@ def _time_hmt(card: S2STInference, audio, inputs: dict) -> dict:
     return {"sessions": sessions, "kv_step_ms": kv_ms, "beam_step_ms": beam_ms}
 
 
-def _step_inputs(k, d, dtype, normalised, seed):
+def _step_inputs(k, d, dtype, normalised, seed, batch=BATCH, length=T_AUDIO):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    pre = (torch.randn((BATCH, T_AUDIO, C), generator=g, device=dev) * 2 + 0.5).to(dtype)
+    pre = (torch.randn((batch, length, C), generator=g, device=dev) * 2 + 0.5).to(dtype)
     w = (torch.randn((k, C, C), generator=g, device=dev) / (k * C) ** 0.5).to(dtype)
     bias = torch.randn(C, generator=g, device=dev) * 0.1
     if normalised:
         pf = pre.float()
-        mean, inv = group_stats(pf.sum(1), pf.square().sum(1), T_AUDIO * C // GROUPS, GROUPS)
-        gamma = torch.rand((BATCH, C), generator=g, device=dev) + 0.5
-        beta = torch.randn((BATCH, C), generator=g, device=dev) * 0.1
+        mean, inv = group_stats(pf.sum(1), pf.square().sum(1), length * C // GROUPS, GROUPS)
+        gamma = torch.rand((batch, C), generator=g, device=dev) + 0.5
+        beta = torch.randn((batch, C), generator=g, device=dev) * 0.1
         slope = 0.1
     else:
-        mean = torch.zeros((BATCH, C), device=dev)
-        inv = gamma = torch.ones((BATCH, C), device=dev)
+        mean = torch.zeros((batch, C), device=dev)
+        inv = gamma = torch.ones((batch, C), device=dev)
         beta, slope = mean, 1.0
     return (pre, mean.contiguous(), inv.contiguous(), gamma, beta, w, bias, slope), (k - 1) * d // 2
 
@@ -1813,6 +1988,18 @@ def _check_step(got, want, dtype):
                              f"out of tolerance (max abs err {float(err.max()):.3g}), "
                              f"sum rel err {rel1:.3g}, sum-sq rel err {rel2:.3g}")
     return float(err.max()), max(rel1, rel2)
+
+
+def _check_sees_taps(args, lo, dilation, want, dtype):
+    """``_check_step`` must refuse the plain step with the MRF taps zeroed
+    on these inputs: else it could not tell a kernel that drops the taps
+    from the plain version.  Raises if it does not refuse it."""
+    try:
+        _check_step(_no_taps(*args, lo=lo, dilation=dilation), want, dtype)
+    except AssertionError:
+        return
+    raise AssertionError(f"the step check cannot tell a step without its taps from the plain step "
+                         f"(k {args[5].shape[0]}, lo {lo}, dilation {dilation}, pre {tuple(args[0].shape)})")
 
 
 def _step_bound_ms(k, dtype):
@@ -1876,10 +2063,6 @@ def main() -> int:
     spk = torch.randn((BATCH, cfg.speaker_dim), generator=g, device="cuda")
     emo = torch.randn((BATCH, cfg.emotion_dim), generator=g, device="cuda")
 
-    def no_taps(pre, mean, inv, gamma, beta, w, bias, slope, *, lo, dilation):
-        return grc_kernel.grc_step_reference(pre, mean, inv, gamma, beta, torch.zeros_like(w), bias,
-                                             slope, lo=lo, dilation=dilation)
-
     with torch.no_grad():
         for name in grc_kernel.launches:
             grc_kernel.launches[name] = 0
@@ -1887,7 +2070,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = dict(grc_kernel.launches)
         wavs_plain = {dtype: m(mel, spk, emo, step=grc_kernel.grc_step_reference) for dtype, m in models.items()}
-        wav_no_taps = model(mel, spk, emo, step=no_taps)
+        wav_no_taps = model(mel, spk, emo, step=_no_taps)
         torch.cuda.synchronize()
     expect_shape = (BATCH, 1, FRAMES * cfg.upsample_ratio)
     for dtype, wav in wavs.items():
@@ -2135,6 +2318,30 @@ def main() -> int:
         runs = _check_train_runs(directory, models[torch.float32])
     _report_train_runs(runs, smi.stdout.strip().splitlines()[0])
 
+    # 14. serving: the app's stdlib server (cli serve without FastAPI) with
+    # the bf16 vocoder route over HTTP, checked and timed before any trace
+    with tempfile.TemporaryDirectory() as directory:
+        serve = _check_serving(directory)
+    serve_audio_s = SERVE_FRAMES * 256 / 16000
+    print(f"serving: StdlibServer on port 0, engine with vocoder_checkpoint (seeded create_train_state(TrainConfig()), "
+          f"the JAX initialisers' draw; make_vocoder_synth bf16) built in {serve['engine_s']:.2f} s (its vocoder "
+          f"alone, built again: {serve['vocoder_s']:.2f} s); /api/health ok, "
+          f"/api/models/info uses_framework_vocoder true, /api/translate/text identity; /api/synthesize/text over "
+          f"a seeded [{SERVE_FRAMES}, 80] mel: the served WAV within {serve['pcm_err']:.3g} of the direct synth's "
+          f"(tol one PCM step {SERVE_PCM_STEP:.3g}); wav peak {serve['peak']:.4f}, std {serve['std']:.4f}; GRC "
+          f"launches a synth call {serve['launches']}, a request {serve['request_launches']}; kernel vs plain path "
+          f"max err {serve['kernel_err']:.3g} (tol {serve['kernel_tol']:.3g}); the 9 kernel steps at "
+          f"[1, {SERVE_FRAMES * 256}, {C}] bf16 against the plain step, on the path's inputs: max |pre_out err| "
+          f"{serve['step_worst']['path'][0]:.3g}, sum rel err {serve['step_worst']['path'][1]:.3g}; on phase 3's "
+          f"seeded inputs (neutral and normalised): {serve['step_worst']['seeded'][0]:.3g}, "
+          f"{serve['step_worst']['seeded'][1]:.3g} (tol 2 ulp, 1e-4); the check refuses the step without its "
+          f"MRF taps on all {serve['steps_checked']} inputs")
+    print(f"timing_serving: {smi.stdout.strip().splitlines()[0]}; a synth call (1 x {SERVE_FRAMES} frames = "
+          f"{SERVE_FRAMES * 256} samples, bf16, numpy in and out) median {serve['synth_ms']:.3f} ms over {RUNS} after "
+          f"{WARMUP} ({serve_audio_s / serve['synth_ms'] * 1e3:.1f} audio-s/s); a /api/synthesize/text request's wall "
+          f"median {serve['request_ms']:.3f} ms over {SERVE_REQUESTS} "
+          f"({json.dumps([round(w, 3) for w in serve['request_walls_ms']])} ms)")
+
     # 13. traces: where the device time goes, in the forward, the cloning call,
     # a train step and an S2ST session.  Last, after every timing: once the
     # profiler has traced the card, the host's launches may stay slower.
@@ -2183,6 +2390,11 @@ def main() -> int:
     print("trace: " + json.dumps({"call": "unit_vocoder_train_step", **uv_trace}))
     print("trace: " + json.dumps({"call": "s2st_train_step", **s2_trace}))
     del runs, rec
+    _reset_launches()
+    serve_trace = _trace(lambda: serve["synth"](serve["mel"]))
+    if grc_kernel.launches["grc_step_bf16"] != 9 * (TRACED_FORWARDS + 1):
+        raise AssertionError(f"the traced synth calls launched the GRC kernels {grc_kernel.launches}")
+    print("trace: " + json.dumps({"call": "serving_synth", **serve_trace}))
     with torch.no_grad():
         after_ms = _time_ms(lambda: model(mel, spk, emo))
     print(f"timing_after_trace: the bf16 forward again, after the profiler: {after_ms:.3f} ms (before it, "
@@ -2200,6 +2412,7 @@ def main() -> int:
             "source": source,
             "replaces": "hifigan_tpu/ops/pallas/grc_kernel.py:176",
             "launches": launches[name],
+            "launches_by_path": {"flagship_forward": launches[name], "serving_synth": serve["launches"][name]},
             "max_abs_err": worst[dtype][0],
             "ms": sum(r["ms"] for r in dtype_rows),
             "plain_ms": sum(r["plain_ms"] for r in dtype_rows),

@@ -14,8 +14,11 @@ unit vocoder over an utterance fed in segments.  The evaluation path
 (``hifigan_tpu_torch.eval``, ``python -m hifigan_tpu_torch.cli eval`` and
 ``eval-clone``) scores the vocoder on the formant corpus: speaker and
 emotion similarity, mel-L1, MCD, ASR-BLEU with a CTC judge, and the
-voice-cloning transfer grid.  Importing the package imports torch and
-numpy only (the corpus adds scipy); kernels are built at first use."""
+voice-cloning transfer grid.  The translation app
+(``hifigan_tpu_torch.app``, ``python -m hifigan_tpu_torch.cli serve``)
+serves the ASR → MT → TTS cascade over HTTP, its TTS mels through the
+vocoder.  Importing the package imports torch and numpy only (the corpus
+adds scipy); kernels are built at first use."""
 
 from hifigan_tpu_torch.entry import (
     build_code_vocoder,

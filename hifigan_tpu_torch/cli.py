@@ -1,6 +1,6 @@
 """Command-line interface of the port: ``train``, ``train-encoders``,
 ``train-clone``, ``train-unit-vocoder``, ``train-s2st``, ``eval``,
-``eval-clone``, ``eval-s2st``, ``simulate`` and ``info``.
+``eval-clone``, ``eval-s2st``, ``simulate``, ``info`` and ``serve``.
 
     python -m hifigan_tpu_torch.cli train --max_steps 1000 --checkpoint_dir ckpt [--bf16]
     python -m hifigan_tpu_torch.cli train --tiny --device cpu --max_steps 2 --checkpoint_dir /tmp/t
@@ -18,6 +18,7 @@
     python -m hifigan_tpu_torch.cli simulate --agent s2st [--audio in.wav] [--checkpoint_dir s2st --unit_vocoder uv]
     python -m hifigan_tpu_torch.cli simulate --tiny --device cpu [--decode hmt --hmt_transition learned]
     python -m hifigan_tpu_torch.cli info [--device cpu]
+    python -m hifigan_tpu_torch.cli serve [--config app.json] [--port 8000] [--device cpu]
 
 Counterpart of ``hifigan_tpu/cli.py``'s commands of the same names, on the
 card unless ``--device cpu``.  Every command runs cuDNN and cuBLAS without
@@ -29,8 +30,10 @@ wav files (``--data_dir``, with ``--augment``), appending one JSON line of
 metrics every ``--log_every`` steps to ``<checkpoint_dir>/metrics.jsonl``
 and saving checkpoints there (:mod:`hifigan_tpu_torch.train.checkpoint`).
 ``--config`` reads the ``training:`` block of a JSON file (YAML only where
-the ``yaml`` package is installed).  Tensorboard events and the
-multi-device mesh are not ported yet.
+the ``yaml`` package is installed).  Where ``tensorboard`` is installed,
+each metrics row is also a TensorBoard event in
+``<checkpoint_dir>/tensorboard/``.  The multi-device mesh is not ported
+yet.
 
 ``train-encoders`` pre-trains the judge encoders on the formant corpus's
 labels and writes ``encoders.pt`` at the end; ``train-clone`` trains the
@@ -73,6 +76,12 @@ prints JAX's JSON summary.  Its models are the seeded full-width pair
 phone names and, without ``--audio``, the utterance is the held-out
 formant-corpus one that ``--seed`` selects (else a row of the synthetic
 dataset).  ``info`` prints the flagship generator's parameter breakdown.
+``serve`` starts the translation app's server (:mod:`hifigan_tpu_torch.app`:
+uvicorn where FastAPI is installed, else the standard library's), its
+settings from a JSON ``--config`` with the JAX package's YAML keys; its TTS
+runs the vocoder of ``models.vocoder_checkpoint`` (a directory of
+``<step>.pt`` train states; by default the first of ``FLAGSHIP_RUNS`` that
+exists, as JAX's ``cli serve`` picks it).
 The JAX package's orbax checkpoints are carried over with
 ``load_jax_params`` and the ``load_jax_*_state`` functions.
 """
@@ -95,28 +104,6 @@ import torch
 log = logging.getLogger("hifigan_tpu_torch")
 
 
-def _prune_metrics(metrics_path: str, resume_step: int) -> None:
-    """Drop ``metrics.jsonl`` rows past ``resume_step`` (and rows out of
-    step order), so a run resumed from an older checkpoint appends no
-    duplicate steps."""
-    if not os.path.exists(metrics_path):
-        return
-    kept, last = [], -1
-    with open(metrics_path) as f:
-        for line in f:
-            try:
-                step = int(json.loads(line).get("step", -1))
-            except (json.JSONDecodeError, TypeError, ValueError):
-                continue
-            if last < step <= resume_step:
-                kept.append(line if line.endswith("\n") else line + "\n")
-                last = step
-    tmp = metrics_path + ".tmp"
-    with open(tmp, "w") as f:
-        f.writelines(kept)
-    os.replace(tmp, metrics_path)
-
-
 def _run_steps(args, state, mgr, step_fn, seed_offset: int, summary, *step_args) -> tuple[int, float]:
     """Step ``state`` up to ``--max_steps``, ``--steps_per_call`` steps a
     call of ``step_fn(state, gen, *step_args)``, ``gen`` a ``torch.Generator``
@@ -125,11 +112,13 @@ def _run_steps(args, state, mgr, step_fn, seed_offset: int, summary, *step_args)
     (logged as ``summary(row)``; rows past a resumed step pruned first), a
     checkpoint at ``mgr``'s interval and at the end.  Returns the steps
     done and the wall seconds."""
+    from hifigan_tpu_torch.utils.tb import prune_metrics
+
     spc = max(1, args.steps_per_call)
     metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
     steps_done = state.step
     t0 = time.time()
-    _prune_metrics(metrics_path, steps_done)
+    prune_metrics(metrics_path, steps_done)
     with open(metrics_path, "a") as mf:
         while steps_done < args.max_steps:
             gen = torch.Generator(state.device).manual_seed(((args.seed + seed_offset) << 32) + steps_done)
@@ -201,6 +190,7 @@ def cmd_train(args) -> None:
     from hifigan_tpu_torch.train.checkpoint import CheckpointManager
     from hifigan_tpu_torch.train.data import AugmentConfig, BatchLoader, SyntheticSpeechDataset, WavDirectoryDataset
     from hifigan_tpu_torch.train.device_data import build_audio_bank, make_device_sampler
+    from hifigan_tpu_torch.utils.tb import ScalarWriter, prune_metrics
 
     resolve_device(args.device)
     cfg, batch_size, seg = _train_settings(args)
@@ -242,8 +232,9 @@ def cmd_train(args) -> None:
         log.info("resumed from step %d", state.step)
     loader = BatchLoader(dataset, batch_size, seed=args.seed, num_chunks=args.num_chunks)
     metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
+    tb_writer = ScalarWriter(os.path.join(args.checkpoint_dir, "tensorboard"))
     steps_done = state.step
-    _prune_metrics(metrics_path, steps_done)
+    prune_metrics(metrics_path, steps_done)
     t_start = time.time()
     n_calls = max(1, len(dataset) // batch_size // steps_per_call)
 
@@ -263,6 +254,7 @@ def cmd_train(args) -> None:
     def finish():
         mgr.save(state, force=True)
         mgr.wait()
+        tb_writer.close()
         _write_training_summary(args, cfg, device, steps_done, time.time() - t_start, data)
 
     with open(metrics_path, "a") as mf:
@@ -284,6 +276,7 @@ def cmd_train(args) -> None:
                         m.update(step=steps_done, epoch=epoch, wall_s=round(time.time() - t_start, 1))
                         mf.write(json.dumps(m) + "\n")
                         mf.flush()
+                        tb_writer.write(steps_done, m)
                         log.info("step %d: G=%.3f D=%.3f mel=%.3f", steps_done, m["generator_loss"],
                                  m["discriminator_loss"], m["mel_loss"])
                     mgr.save(state)
@@ -380,6 +373,7 @@ def cmd_train_clone(args) -> None:
         make_pair_sampler,
     )
     from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, graft_into_extractor
+    from hifigan_tpu_torch.utils.tb import prune_metrics
     from hifigan_tpu_torch.weights import load_encoder_checkpoint
 
     device = resolve_device(args.device)
@@ -465,7 +459,7 @@ def cmd_train_clone(args) -> None:
     metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
     steps_done = state.step
     t0 = time.time()
-    _prune_metrics(metrics_path, steps_done)
+    prune_metrics(metrics_path, steps_done)
     with open(metrics_path, "a") as mf:
         while steps_done < args.max_steps:
             gen = torch.Generator(device).manual_seed(((args.seed + 2) << 32) + steps_done)
@@ -592,6 +586,23 @@ def cmd_train_s2st(args) -> None:
             json.dump(report, f, indent=2)
         log.info("held-out token F1 %.3f exact %.3f (n=%d)", report["token_f1"], report["exact_match"], report["n"])
         print(json.dumps(report))
+
+
+def cmd_serve(args) -> None:
+    """Serve the translation app on ``--device`` (checked before anything
+    binds a port)."""
+    from hifigan_tpu_torch.app.config import settings, settings_from_json
+    from hifigan_tpu_torch.app.server import serve
+    from hifigan_tpu_torch.entry import resolve_device
+
+    resolve_device(args.device)
+    cfg = settings_from_json(args.config) if args.config else settings
+    if args.port:
+        cfg = replace(cfg, web=replace(cfg.web, port=args.port))
+    if cfg.models.vocoder_checkpoint is None and _first(*FLAGSHIP_RUNS):
+        # the shipped trained vocoder by default, as JAX's cli serve picks it
+        cfg = replace(cfg, models=replace(cfg.models, vocoder_checkpoint=_first(*FLAGSHIP_RUNS)))
+    serve(cfg, args.device)
 
 
 def cmd_info(args) -> None:
@@ -1248,6 +1259,12 @@ def build_parser() -> argparse.ArgumentParser:
     ts.add_argument("--resume", action="store_true")
     ts.add_argument("--tiny", action="store_true", help="tiny model (d 32, one layer each), max(8, 2 x batch) utterances")
     ts.set_defaults(fn=cmd_train_s2st)
+
+    v = sub.add_parser("serve", help="start the translation app server")
+    v.add_argument("--config", default=None, help="a JSON file of app settings (the JAX package's YAML keys)")
+    v.add_argument("--port", type=int, default=0, help="the port (0: the config's)")
+    v.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    v.set_defaults(fn=cmd_serve)
 
     i = sub.add_parser("info", help="the flagship generator's parameter breakdown")
     i.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")

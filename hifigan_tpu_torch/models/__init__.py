@@ -10,6 +10,7 @@ from hifigan_tpu_torch.models.generator import (
     GeneratorConfig,
     GRCLoRABlock,
     HiFiGANV1Generator,
+    ODConv1d,
     ODConvTranspose1d,
 )
 from hifigan_tpu_torch.models.streamspeech import StreamSpeechConfig, StreamSpeechS2ST
@@ -17,4 +18,4 @@ from hifigan_tpu_torch.models.vocoder import ModifiedVocoder
 
 __all__ = ["ChunkedConformer", "CodeVocoder", "CodeVocoderConfig", "Discriminators", "EcapaTdnn",
            "EmbeddingExtractor", "Emotion2Vec", "FiLM", "Generator", "GeneratorConfig", "GRCLoRABlock",
-           "HiFiGANV1Generator", "ModifiedVocoder", "ODConvTranspose1d", "StreamSpeechConfig", "StreamSpeechS2ST"]
+           "HiFiGANV1Generator", "ModifiedVocoder", "ODConv1d", "ODConvTranspose1d", "StreamSpeechConfig", "StreamSpeechS2ST"]

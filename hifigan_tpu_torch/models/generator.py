@@ -14,7 +14,8 @@ fp32 and carry the JAX package's names and layouts (see
 :mod:`hifigan_tpu_torch.weights`); ``dtype`` is the compute dtype.
 
 Also the plain HiFi-GAN V1 generator (``HiFiGANV1Generator``, static
-convs), the unit vocoder's.
+convs), the unit vocoder's, and the standalone forward ODConv
+(``ODConv1d``), which the flagship does not use.
 """
 
 from __future__ import annotations
@@ -123,6 +124,30 @@ class ODConvTranspose1d(nn.Module):
         w = w * attn.spatial[:, None, None, :].to(self.dtype)
         x = (x * attn.in_channel[:, None, :]).to(self.dtype)
         y = conv_ops.dynamic_conv_transpose1d(x, w, b, stride=self.stride, padding=self.padding)
+        return (y * attn.out_channel[:, None, :]).to(self.dtype)
+
+
+class ODConv1d(nn.Module):
+    """Omni-dimensional dynamic forward conv: per sample the K banks
+    ``[K, k, Cin, Cout]`` are mixed by the kernel attention and tap j is
+    scaled by the spatial attention; the in-channel attention scales the
+    input and the out-channel attention scales conv + bias."""
+
+    def __init__(self, in_features, out_features, kernel_size, stride=1, padding=0, dilation=1,
+                 num_kernels=4, dtype=torch.float32, *, gen):
+        super().__init__()
+        self.stride, self.padding, self.dilation, self.dtype = stride, padding, dilation, dtype
+        self.attention = _ODAttentionHeads(in_features, out_features, kernel_size, num_kernels, gen)
+        self.kernels = _normal(gen, 0.01, num_kernels, kernel_size, in_features, out_features)
+        self.bias = _const(0.0, num_kernels, out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        attn = self.attention(x)
+        w = od_ops.mix_kernels(self.kernels, attn.kernel, self.dtype)  # [B, k, Cin, Cout]
+        w = w * attn.spatial[:, :, None, None].to(self.dtype)
+        b = od_ops.mix_bias(self.bias, attn.kernel)
+        x = (x * attn.in_channel[:, None, :]).to(self.dtype)
+        y = conv_ops.dynamic_conv1d(x, w, b, stride=self.stride, padding=self.padding, dilation=self.dilation)
         return (y * attn.out_channel[:, None, :]).to(self.dtype)
 
 

@@ -115,5 +115,46 @@ def dynamic_conv_transpose1d(
     return y.to(x.dtype)
 
 
+def extract_patches_1d(
+    x: torch.Tensor,
+    kernel_size: int,
+    *,
+    stride: int = 1,
+    padding: int = 0,
+    dilation: int = 1,
+) -> torch.Tensor:
+    """Im2col of ``x [B, T, C]`` → ``[B, T_out, kernel_size, C]``, tap i
+    the zero-padded input from ``i·dilation`` in steps of ``stride``;
+    ``T_out = (T + 2·padding − dilation·(kernel_size − 1) − 1) // stride + 1``."""
+    t_out = (x.shape[1] + 2 * padding - dilation * (kernel_size - 1) - 1) // stride + 1
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding))
+    taps = [x[:, i * dilation: i * dilation + (t_out - 1) * stride + 1: stride] for i in range(kernel_size)]
+    return torch.stack(taps, dim=2)
+
+
+def dynamic_conv1d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    stride: int = 1,
+    padding: int = 0,
+    dilation: int = 1,
+) -> torch.Tensor:
+    """Per-sample-filter conv as a batched patch product: ``x [B, T, Cin]``,
+    ``w [B, k, Cin, Cout]``, ``b [B, Cout]`` or ``[Cout]`` → ``[B, T_out,
+    Cout]``.  The products are summed in fp32 and the bias added there, as
+    the JAX einsum with ``preferred_element_type=float32`` does; the result
+    is cast to ``x``'s dtype."""
+    B, k = w.shape[0], w.shape[1]
+    patches = extract_patches_1d(x, k, stride=stride, padding=padding, dilation=dilation)
+    t_out = patches.shape[1]
+    y = torch.bmm(patches.reshape(B, t_out, -1).float(), w.reshape(B, -1, w.shape[-1]).float())
+    if b is not None:
+        y = y + (b[:, None, :] if b.dim() == 2 else b).float()
+    return y.to(x.dtype)
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)

@@ -59,11 +59,18 @@ class CheckpointManager:
     def restore(self, state, step: Optional[int] = None):
         """Load step ``step`` (default: the newest) into ``state``, on its
         devices; returns it."""
+        state.load_state_dict(self.load(step, map_location=state.device))
+        return state
+
+    def load(self, step: Optional[int] = None, *, map_location=None) -> dict:
+        """The state dict saved at step ``step`` (default: the newest), its
+        tensors memory-mapped from the file and moved to ``map_location``
+        as they are read (so a caller that takes one part of it reads only
+        that part)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self._dir}")
-        state.load_state_dict(torch.load(self._path(step), map_location=state.device, weights_only=True))
-        return state
+        return torch.load(self._path(step), map_location=map_location, weights_only=True, mmap=True)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

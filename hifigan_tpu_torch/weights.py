@@ -19,7 +19,11 @@ with its training step (what ``cli simulate`` and ``cli eval-s2st``
 ``--checkpoint`` read), the run directories of ``cli train-s2st`` and
 ``cli train-unit-vocoder`` (what they read with ``--checkpoint_dir`` and
 ``--unit_vocoder``), the judge encoders and the CTC judge (what ``cli
-eval --encoders`` / ``--asr`` and ``cli eval-clone --encoders`` read).
+eval --encoders`` / ``--asr`` and ``cli eval-clone --encoders`` read),
+and the waveform speaker encoder (what ``SpeakerEncoder`` reads).  Every
+flax name of ``WaveformEcapaTdnn``, ``StandaloneGRCBlock``,
+``ParallelMRFBlock`` and ``ODConv1d`` is the port's, so
+:func:`load_jax_params` fills them too.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from torch import nn
 from hifigan_tpu_torch.models.code_vocoder import CodeVocoder, CodeVocoderConfig
 from hifigan_tpu_torch.models.embeddings import EcapaTdnn, Emotion2Vec
 from hifigan_tpu_torch.models.streamspeech import FEATURE_REV, StreamSpeechConfig, StreamSpeechS2ST
+from hifigan_tpu_torch.models.waveform_encoders import WaveformEcapaTdnn
 from hifigan_tpu_torch.ops.stft import MelConfig
 from hifigan_tpu_torch.train.checkpoint import CheckpointManager
 from hifigan_tpu_torch.train.encoder_pretrain import EncoderTrainConfig, build_models, strip_classifier
@@ -312,3 +317,25 @@ def load_ctc_judge(path: str, device: str | torch.device) -> tuple[StreamSpeechS
     model = StreamSpeechS2ST(cfg, gen=torch.Generator().manual_seed(0), with_vocoder=False)
     model.load_state_dict(ckpt["s2st"])
     return model.to(device).eval(), int(ckpt["step"])
+
+
+def save_jax_speaker_encoder(path: str, tree: Mapping) -> WaveformEcapaTdnn:
+    """Write the JAX package's ``WaveformEcapaTdnn`` params (a flax tree of
+    numpy arrays) as the port's speaker-encoder file, the one
+    ``SpeakerEncoder(checkpoint_path=)`` reads: the widths, read from the
+    tree's shapes, and the state dict.  Returns the filled module."""
+    flat = dict(_flatten(tree["params"] if "params" in tree else tree))
+    _, n_mels, hidden = np.shape(flat["tdnn_0_kernel"])
+    widths = {"n_mels": int(n_mels), "hidden": int(hidden), "embedding_dim": int(np.shape(flat["proj.kernel"])[1])}
+    model = load_jax_params(WaveformEcapaTdnn(**widths, gen=torch.Generator().manual_seed(0)), tree)
+    torch.save({"widths": widths, "state_dict": model.state_dict()}, path)
+    return model
+
+
+def load_speaker_encoder_checkpoint(path: str, device: str | torch.device) -> WaveformEcapaTdnn:
+    """The fp32 ``WaveformEcapaTdnn`` of a :func:`save_jax_speaker_encoder`
+    file, in eval mode, on ``device``; the state dict must fit exactly."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model = WaveformEcapaTdnn(**ckpt["widths"], gen=torch.Generator().manual_seed(0))
+    model.load_state_dict(ckpt["state_dict"])
+    return model.to(device).eval()

@@ -5,13 +5,15 @@ train``, ``cli train-encoders``, ``cli train-clone``, ``cli
 train-unit-vocoder``, ``cli train-s2st``, ``cli info``, the S2ST model, the
 unit vocoder, the S2ST runtime, ``cli simulate``, ``cli eval``, ``cli
 eval-clone`` and the CTC judge) run on the card unless the caller asks for
-the CPU (``cli eval-s2st`` too)."""
+the CPU (``cli eval-s2st``, ``cli serve``, the app's vocoder route, engine
+and server and the waveform encoders too)."""
 
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -108,3 +110,33 @@ def test_eval_entry_points_without_a_card_raise(monkeypatch, tmp_path):
     (tmp_path / "judge.pt").write_bytes(b"")
     judge, gate = asr.load_competent_ctc([str(tmp_path / "judge.pt")], [], [])
     assert judge is None and "no CUDA device" in gate["candidates"][0]["error"]
+
+
+def test_serving_without_a_card_raises(monkeypatch, tmp_path):
+    """``cli serve`` raises before it binds a port or builds an engine;
+    ``make_vocoder_synth``, the engine, the server and the waveform encoders
+    default to the card; the source scan covers the app."""
+    import socketserver
+
+    from hifigan_tpu_torch.app import engine, server
+    from hifigan_tpu_torch.models import waveform_encoders
+
+    assert {"engine.py", "server.py", "models.py", "audio.py", "config.py", "offline.py", "desktop.py"} <= {
+        p.name for p in SOURCES if p.parent.name == "app"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_bind(*args, **kwargs):
+        raise AssertionError("a port was bound")
+
+    monkeypatch.setattr(socketserver.TCPServer, "server_bind", no_bind)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve", "--port", "8765"])
+    (tmp_path / "1.pt").write_bytes(b"")
+    for build in (lambda: engine.make_vocoder_synth(str(tmp_path)),
+                  lambda: engine.RealTimeTranslationEngine(load_models=False),
+                  lambda: server.StdlibServer(load_models=False),
+                  lambda: waveform_encoders.SpeakerEncoder(),
+                  lambda: waveform_encoders.Wav2Vec2Emotion(),
+                  lambda: waveform_encoders.extract_mel_features(np.zeros(1024, np.float32))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
