@@ -150,7 +150,21 @@ Phases, each printing its own line:
      at [1, 65536, 32] bf16, and phase 3's seeded steps at that shape,
      against the plain step with phase 3's limits, which must refuse the
      step with its MRF taps zeroed on each; the synth call's median time (CUDA events, 25 after
-     warm-up) and a request's wall.
+     warm-up) and a request's wall;
+ 15. parallelism (run before the traces), over an NCCL group of one rank
+     (NCCL places one rank on a card), destroyed at the end:
+     make_sharded_train_step over make_mesh(1, 1) at phase 7's TrainConfig()
+     bf16 16 x 8192 steps, 2 + 3 steps with losses equal to the plain
+     step's and two gradient all-reduces a step, then both steps' median
+     time over 10 after 2, alternating;
+     the sequence-parallel StreamSpeechConfig() encoder over 4,096 frames
+     (fp32) within 1e-4 of the peak of ChunkedConformer(chunked=True), both
+     wall times; `python -m torch.distributed.run --standalone
+     --nproc_per_node 1 -m hifigan_tpu_torch.cli train --bf16 --dataset
+     formant --device_data --max_steps 2` exits 0 with the metrics of the
+     command without the launcher; dryrun_multichip(1) on the card, and
+     dryrun_multichip(4, device="cpu"), four gloo processes on the card
+     machine's CPU (a check of its torch.distributed, not a timing).
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
@@ -337,6 +351,12 @@ RUNS_WARMUP, RUNS_TIMED, RUNS_BF16_STEPS = 2, 3, 2
 RUNS_UV_CHECK_UNITS = 4
 RUNS_S2ST_DRAW = {"idx": [0, 1], "use_prefix": [True, False], "frac": [0.6, 0.9]}
 S2ST_EVAL_KEYS = {"token_f1", "exact_match", "n", "step"}  # the JAX package's s2st_eval.json
+
+# The parallel phase: the sharded GAN step at phase 7's shape over a mesh of
+# one card, 2 + 3 steps against the plain step; the sequence-parallel
+# StreamSpeechConfig() encoder over 4,096 frames; cli train under the
+# launcher and without it over a small formant corpus.
+PARALLEL_WARMUP, PARALLEL_STEPS, PARALLEL_TIMED, SP_FRAMES, PARALLEL_CORPUS = 2, 3, 10, 4096, 64
 
 # The eval sample's metrics on the card against the CPU (TF32 off; the card
 # runs the fp32 kernel, the CPU the plain chain): SIM is a cosine of unit
@@ -1578,6 +1598,140 @@ def _report_train_runs(runs: dict, card: str) -> None:
           f"cli eval-s2st over the run directories {runs['es_wall']:.2f} s wall")
 
 
+def _check_parallel(directory: str) -> dict:
+    """Phase 15: the port's parallelism on one card.
+
+    - NCCL at world 1 (NCCL places one rank on a card), its group destroyed
+      at the end: ``make_sharded_train_step`` over ``make_mesh(1, 1)`` at
+      TrainConfig() bf16, 16 x 8192 samples a step from phase 7's
+      ``make_device_sampler``, PARALLEL_WARMUP + PARALLEL_STEPS steps beside
+      the plain step from the same seeds, cuDNN deterministic: the losses
+      equal bit for bit, two gradient all-reduces a step (one an optimiser
+      update), no GRC-kernel launch (the step differentiates the plain
+      chain, as the plain step does); then both timed by CUDA events, PARALLEL_TIMED steps each
+      after PARALLEL_WARMUP, alternating, cuDNN's default algorithms.
+    - ``conformer_forward_seq_sharded`` over the StreamSpeechConfig()
+      encoder (d 512, 12 layers, 8 heads, chunk 32), fp32, TF32 off, on
+      1 x SP_FRAMES frames against ``ChunkedConformer(chunked=True)``:
+      within 1e-4 of the output's peak; both wall times (CUDA events).
+    - ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+      hifigan_tpu_torch.cli train --bf16 --dataset formant --device_data
+      --max_steps 2`` exits 0, and its metrics.jsonl equals the same
+      command's without the launcher (within 1e-4 relative: cuDNN's default
+      backward algorithms may add in another order run to run).
+    - ``dryrun_multichip(1)`` on the card (a spawned NCCL rank), then
+      ``dryrun_multichip(4, device="cpu")``: four gloo processes on the
+      card machine's CPU, a check of its PyTorch distributed API, not a
+      timing."""
+    from hifigan_tpu_torch.entry import dryrun_multichip
+    from hifigan_tpu_torch.models.conformer import ChunkedConformer
+    from hifigan_tpu_torch.parallel import (
+        conformer_forward_seq_sharded,
+        make_mesh,
+        make_sharded_train_step,
+        single_process_group,
+    )
+    from hifigan_tpu_torch.parallel.tensor import counts
+
+    cfg = TrainConfig()
+    out = {}
+    with single_process_group("cuda"):
+        mesh = make_mesh(1, 1)
+        bank, lengths = build_audio_bank(SyntheticSpeechDataset(segment_samples=TRAIN_SEGMENT, size=TRAIN_BANK_ROWS))
+        sample = make_device_sampler(torch.from_numpy(bank).cuda(), torch.from_numpy(lengths), TRAIN_SEGMENT,
+                                     TRAIN_BATCH)
+        plain_state, mesh_state = (create_train_state(cfg, torch.bfloat16, "cuda", seed=0) for _ in range(2))
+        plain = make_train_step(cfg, sample_fn=sample)
+        sharded = make_sharded_train_step(make_train_step(cfg, sample_fn=sample), mesh)
+        n = PARALLEL_WARMUP + PARALLEL_STEPS
+        losses = {"plain": [], "mesh": []}
+        reduces = []
+        _reset_launches()
+        torch.backends.cudnn.deterministic = True
+        try:
+            for i in range(n):
+                losses["plain"].append({k: float(v) for k, v in plain(plain_state, 100 + i)[1].items()})
+                before = counts["grad_all_reduce"]
+                losses["mesh"].append({k: float(v) for k, v in sharded(mesh_state, 100 + i)[1].items()})
+                reduces.append(counts["grad_all_reduce"] - before)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if losses["plain"] != losses["mesh"]:
+            raise AssertionError(f"the sharded step's losses differ from the plain step's: {losses}")
+        if reduces != [2] * n:
+            raise AssertionError(f"gradient all-reduces a step {reduces}, expected 2 (one an optimiser update)")
+        grc_launches = dict(grc_kernel.launches)
+        if any(grc_launches.values()):
+            raise AssertionError(f"the sharded and plain train steps launched the GRC kernels {grc_launches}")
+        times = {"plain": [], "mesh": []}
+        for i in range(PARALLEL_WARMUP + PARALLEL_TIMED):
+            for key, fn, st in (("plain", plain, plain_state), ("mesh", sharded, mesh_state)):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(st, 200 + i)
+                end.record()
+                end.synchronize()
+                times[key].append(start.elapsed_time(end))
+        out.update(losses=losses["mesh"], reduces=reduces[0], times=times, grc_launches=grc_launches,
+                   step_ms={k: statistics.median(v[PARALLEL_WARMUP:]) for k, v in times.items()})
+        del plain_state, mesh_state, bank
+
+        s2 = StreamSpeechConfig()
+        enc = ChunkedConformer(s2.input_dim, s2.hidden_dim, s2.encoder_layers, s2.num_heads, s2.chunk_size,
+                               gen=torch.Generator().manual_seed(0)).cuda().eval()
+        mel = torch.randn((1, SP_FRAMES, s2.input_dim), generator=torch.Generator().manual_seed(1)).cuda()
+        with torch.no_grad():
+            want = enc(mel, chunked=True)
+            got = conformer_forward_seq_sharded(enc, mel)
+        sp_err = float((got - want).abs().max() / want.abs().max())
+        if tuple(got.shape) != (1, SP_FRAMES, s2.hidden_dim) or not sp_err <= 1e-4:
+            raise AssertionError(f"sequence-parallel encoder {tuple(got.shape)} off by {sp_err:.3g} of the peak")
+        with torch.no_grad():
+            out["sp_ms"] = _time_ms(lambda: conformer_forward_seq_sharded(enc, mel), runs=5)
+            out["plain_encoder_ms"] = _time_ms(lambda: enc(mel, chunked=True), runs=5)
+        out.update(sp_err=sp_err, encoder_params=sum(p.numel() for p in enc.parameters()))
+        del enc, mel, want, got
+    if torch.distributed.is_initialized():
+        raise AssertionError("the NCCL group of the parallel phase was not destroyed")
+
+    argv = ["train", "--bf16", "--dataset", "formant", "--dataset_size", str(PARALLEL_CORPUS), "--device_data",
+            "--max_steps", "2", "--log_every", "1"]
+    walls, rows = {}, {}
+    for key, launcher in (("launched", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                        "--nproc_per_node", "1"]), ("plain", [sys.executable])):
+        run_dir = os.path.join(directory, key)
+        t0 = time.perf_counter()
+        proc = subprocess.run(launcher + ["-m", "hifigan_tpu_torch.cli"] + argv + ["--checkpoint_dir", run_dir],
+                              capture_output=True, text=True, timeout=600)
+        walls[key] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli train ({key}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rows[key] = _metrics_rows(run_dir)
+        for row in rows[key]:
+            row.pop("wall_s")
+    if [r["step"] for r in rows["launched"]] != [1, 2] or len(rows["plain"]) != 2:
+        raise AssertionError(f"cli train metrics rows: {rows}")
+    cli_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(rows["launched"], rows["plain"])
+                  for k in b)
+    if cli_err > 1e-4 or rows["launched"][0].keys() != rows["plain"][0].keys():
+        raise AssertionError(f"cli train under the launcher differs from the plain run: {rows}")
+    out.update(cli_walls=walls, cli_err=cli_err, cli_rows=rows["launched"])
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        card = dryrun_multichip(1)
+        out["dryrun_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gloo = dryrun_multichip(4, device="cpu")
+        out["dryrun_gloo_s"] = time.perf_counter() - t0
+    lines = [line for line in buf.getvalue().splitlines() if line.startswith("dryrun_multichip OK")]
+    if len(lines) != 2 or gloo["mesh"] != {"data": 2, "model": 2} or gloo["tp_all_reduces"] != 10:
+        raise AssertionError(f"dryrun_multichip: {buf.getvalue()[-2000:]}")
+    out.update(dryrun_lines=lines, dryrun_card=card, dryrun_gloo=gloo)
+    return out
+
+
 # The serving phase: the app's stdlib server (what `cli serve` runs without
 # FastAPI) over an engine whose TTS routes mels through make_vocoder_synth of
 # a seeded create_train_state(TrainConfig()) checkpoint, bf16 (the default).
@@ -2342,6 +2496,32 @@ def main() -> int:
           f"median {serve['request_ms']:.3f} ms over {SERVE_REQUESTS} "
           f"({json.dumps([round(w, 3) for w in serve['request_walls_ms']])} ms)")
 
+    # 15. parallelism: the sharded train step and the sequence-parallel
+    # encoder over an NCCL group of one card, cli train under the launcher,
+    # dryrun_multichip on the card and on four gloo processes; before any
+    # trace
+    card_line = smi.stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory() as directory:
+        par = _check_parallel(directory)
+    print(f"parallel: {card_line}; NCCL at world 1 (one rank a card): make_sharded_train_step over make_mesh(1, 1), "
+          f"TrainConfig() bf16, {TRAIN_BATCH} x {TRAIN_SEGMENT} samples from make_device_sampler, "
+          f"{PARALLEL_WARMUP} + {PARALLEL_STEPS} steps: losses equal to the plain step's bit for bit (cuDNN "
+          f"deterministic) {json.dumps(par['losses'][-1])}; gradient all-reduces a step {par['reduces']} (one an "
+          f"optimiser update); GRC kernel launches in the steps {json.dumps(par['grc_launches'])}; "
+          f"conformer_forward_seq_sharded over the StreamSpeechConfig() encoder "
+          f"({par['encoder_params']} parameters) at 1 x {SP_FRAMES} frames, fp32: {par['sp_err']:.3g} of the peak "
+          f"from ChunkedConformer(chunked=True) (tol 1e-4); torch.distributed.run --nproc_per_node 1 cli train "
+          f"--bf16 --dataset formant --device_data --max_steps 2: exit 0, metrics.jsonl within {par['cli_err']:.3g} "
+          f"relative of the plain command's (tol 1e-4); {par['dryrun_lines'][0]} (card); gloo CPU check of the "
+          f"card machine's torch.distributed, not a timing: {par['dryrun_lines'][1]}")
+    print(f"timing_parallel: {card_line}; train step median over {PARALLEL_TIMED} after {PARALLEL_WARMUP}, "
+          f"alternating: sharded {par['step_ms']['mesh']:.3f} ms, plain {par['step_ms']['plain']:.3f} ms "
+          f"({json.dumps({k: [round(t, 3) for t in v] for k, v in par['times'].items()})} ms); sequence-parallel "
+          f"encoder at world 1 {par['sp_ms']:.3f} ms, ChunkedConformer {par['plain_encoder_ms']:.3f} ms (median of "
+          f"5, CUDA events); cli train wall {par['cli_walls']['launched']:.2f} s launched, "
+          f"{par['cli_walls']['plain']:.2f} s plain; dryrun_multichip(1) {par['dryrun_card_s']:.2f} s, "
+          f"dryrun_multichip(4, cpu) {par['dryrun_gloo_s']:.2f} s wall")
+
     # 13. traces: where the device time goes, in the forward, the cloning call,
     # a train step and an S2ST session.  Last, after every timing: once the
     # profiler has traced the card, the host's launches may stay slower.
@@ -2412,7 +2592,8 @@ def main() -> int:
             "source": source,
             "replaces": "hifigan_tpu/ops/pallas/grc_kernel.py:176",
             "launches": launches[name],
-            "launches_by_path": {"flagship_forward": launches[name], "serving_synth": serve["launches"][name]},
+            "launches_by_path": {"flagship_forward": launches[name], "serving_synth": serve["launches"][name],
+                                 "sharded_train_step": par["grc_launches"][name]},
             "max_abs_err": worst[dtype][0],
             "ms": sum(r["ms"] for r in dtype_rows),
             "plain_ms": sum(r["plain_ms"] for r in dtype_rows),

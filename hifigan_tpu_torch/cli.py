@@ -32,8 +32,14 @@ and saving checkpoints there (:mod:`hifigan_tpu_torch.train.checkpoint`).
 ``--config`` reads the ``training:`` block of a JSON file (YAML only where
 the ``yaml`` package is installed).  Where ``tensorboard`` is installed,
 each metrics row is also a TensorBoard event in
-``<checkpoint_dir>/tensorboard/``.  The multi-device mesh is not ported
-yet.
+``<checkpoint_dir>/tensorboard/``.  Launched in N processes (``python -m
+torch.distributed.run --nproc_per_node N -m hifigan_tpu_torch.cli train
+...``: one a card over NCCL, or gloo processes with ``--device cpu``) it
+trains data-parallel: each rank takes its rows of the same seeded batch,
+the gradients are averaged before each update, and rank 0 alone writes
+the run's files.  The batch must divide by N; with N > 1
+``--steps_per_call`` is 1 and ``--device_data`` falls back to the host
+loader.
 
 ``train-encoders`` pre-trains the judge encoders on the formant corpus's
 labels and writes ``encoders.pt`` at the end; ``train-clone`` trains the
@@ -89,6 +95,7 @@ The JAX package's orbax checkpoints are carried over with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import itertools
@@ -185,15 +192,38 @@ def _train_settings(args):
 
 
 def cmd_train(args) -> None:
+    import torch.distributed as dist
+
     from hifigan_tpu_torch.entry import resolve_device
+    from hifigan_tpu_torch.parallel import init_from_env
+
+    resolve_device(args.device)
+    cfg, batch_size, seg = _train_settings(args)
+    owns_group = not dist.is_initialized()
+    me = init_from_env(args.device)
+    try:
+        _train(args, cfg, batch_size, seg, me)
+    finally:
+        if me is not None and owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, batch_size: int, seg: int, me) -> None:
+    """``cmd_train``'s run; ``me``: this process's rank when launched (data
+    parallel over the group), else None."""
+    from hifigan_tpu_torch.parallel import make_mesh, make_sharded_train_step
     from hifigan_tpu_torch.train import create_train_state, make_train_step
     from hifigan_tpu_torch.train.checkpoint import CheckpointManager
     from hifigan_tpu_torch.train.data import AugmentConfig, BatchLoader, SyntheticSpeechDataset, WavDirectoryDataset
     from hifigan_tpu_torch.train.device_data import build_audio_bank, make_device_sampler
     from hifigan_tpu_torch.utils.tb import ScalarWriter, prune_metrics
 
-    resolve_device(args.device)
-    cfg, batch_size, seg = _train_settings(args)
+    world = me.world if me is not None else 1
+    writer = me is None or me.rank == 0  # rank 0 alone writes the run's files
+    if batch_size % world:
+        # JAX shrinks its device count until it divides the batch; a
+        # launched process cannot be dropped
+        raise ValueError(f"--batch_size {batch_size} is not divisible by the {world} launched processes")
     if args.data_dir:
         dataset = WavDirectoryDataset(args.data_dir, segment_samples=seg,
                                       augment_cfg=AugmentConfig() if args.augment else None)
@@ -209,11 +239,13 @@ def cmd_train(args) -> None:
         data = "synthetic"
         log.info("no --data_dir: training on the synthetic dataset")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    state = create_train_state(cfg, dtype, args.device, seed=args.seed)
+    state = create_train_state(cfg, dtype, me.device if me is not None else args.device, seed=args.seed)
     device = state.device
-    steps_per_call = max(1, args.steps_per_call)
+    steps_per_call = max(1, args.steps_per_call) if world == 1 else 1  # the mesh path shards one batch a call
     sample_fn = None
-    if args.device_data and not isinstance(dataset, WavDirectoryDataset):
+    if args.device_data and world > 1:
+        log.warning("--device_data needs a single device and a bankable dataset; falling back to the host loader")
+    elif args.device_data and not isinstance(dataset, WavDirectoryDataset):
         # the whole corpus in device memory, crops drawn there: per call
         # the host sends one seed
         bank, lengths = build_audio_bank(dataset)
@@ -225,6 +257,9 @@ def cmd_train(args) -> None:
                     "crops): using the host loader")
     step_fn = make_train_step(cfg, multi_steps=steps_per_call, sample_fn=sample_fn,
                               deep_feature_matching=args.deep_fm)
+    if me is not None:
+        step_fn = make_sharded_train_step(step_fn, make_mesh(world))
+        log.info("data-parallel over %d processes (rank %d, %s)", world, me.rank, device)
 
     mgr = CheckpointManager(args.checkpoint_dir, save_interval=args.save_steps)
     if args.resume and mgr.latest_step() is not None:
@@ -232,9 +267,10 @@ def cmd_train(args) -> None:
         log.info("resumed from step %d", state.step)
     loader = BatchLoader(dataset, batch_size, seed=args.seed, num_chunks=args.num_chunks)
     metrics_path = os.path.join(args.checkpoint_dir, "metrics.jsonl")
-    tb_writer = ScalarWriter(os.path.join(args.checkpoint_dir, "tensorboard"))
+    tb_writer = ScalarWriter(os.path.join(args.checkpoint_dir, "tensorboard")) if writer else None
     steps_done = state.step
-    prune_metrics(metrics_path, steps_done)
+    if writer:
+        prune_metrics(metrics_path, steps_done)
     t_start = time.time()
     n_calls = max(1, len(dataset) // batch_size // steps_per_call)
 
@@ -252,12 +288,13 @@ def cmd_train(args) -> None:
                 pending = []
 
     def finish():
-        mgr.save(state, force=True)
-        mgr.wait()
-        tb_writer.close()
-        _write_training_summary(args, cfg, device, steps_done, time.time() - t_start, data)
+        if writer:
+            mgr.save(state, force=True)
+            mgr.wait()
+            tb_writer.close()
+            _write_training_summary(args, cfg, device, steps_done, time.time() - t_start, data)
 
-    with open(metrics_path, "a") as mf:
+    with open(metrics_path, "a") if writer else contextlib.nullcontext() as mf:
         for epoch in (itertools.count() if args.max_steps else range(args.epochs)):
             for chunk in range(args.num_chunks):
                 for batch in batches(epoch, chunk):
@@ -271,7 +308,7 @@ def cmd_train(args) -> None:
                         mgr.restore(state)
                         continue
                     steps_done += steps_per_call
-                    if steps_done % args.log_every < steps_per_call:
+                    if writer and steps_done % args.log_every < steps_per_call:
                         m = {k: float(v) for k, v in metrics.items()}
                         m.update(step=steps_done, epoch=epoch, wall_s=round(time.time() - t_start, 1))
                         mf.write(json.dumps(m) + "\n")
@@ -279,12 +316,13 @@ def cmd_train(args) -> None:
                         tb_writer.write(steps_done, m)
                         log.info("step %d: G=%.3f D=%.3f mel=%.3f", steps_done, m["generator_loss"],
                                  m["discriminator_loss"], m["mel_loss"])
-                    mgr.save(state)
+                    if writer:
+                        mgr.save(state)
                     if args.max_steps and steps_done >= args.max_steps:
                         finish()
                         log.info("done at step %d", steps_done)
                         return
-                if args.num_chunks > 1:
+                if args.num_chunks > 1 and writer:
                     mgr.save(state, force=True)  # a checkpoint per chunk (incremental training)
     finish()
 

@@ -40,12 +40,17 @@ class ConformerConvModule(nn.Module):
         self.norm = LayerNorm(d)
         self.pw2 = Dense(d, d, gen, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        """``causal``: the depthwise conv padded ``(k − 1, 0)``, else symmetrically."""
+    def forward(self, x: torch.Tensor, causal: bool = False, context=None) -> torch.Tensor:
+        """``causal``: the depthwise conv padded ``(k − 1, 0)``, else
+        symmetrically.  ``context(h)``, with ``causal``, returns the ``k − 1``
+        frames of the GLU output that precede ``h`` (the sequence-parallel
+        encoder's halo), which take the place of the left padding."""
         a, b = self.pw1(x).chunk(2, dim=-1)
         h = a * torch.sigmoid(b)
         k = self.dw_kernel.shape[0]
         pad = (k - 1, 0) if causal else ((k - 1) // 2, (k - 1) // 2)
+        if causal and context is not None:
+            h, pad = torch.cat([context(h), h], dim=1), (0, 0)
         h = conv_ops.conv1d(h, self.dw_kernel.to(self.dtype), self.dw_bias, padding=pad, groups=h.shape[-1])
         h = torch.relu(self.norm(h).to(self.dtype))
         return self.pw2(h)
@@ -66,10 +71,13 @@ class ConformerLayer(nn.Module):
         self.conv = ConformerConvModule(d, dtype=dtype, gen=gen)
         self.conv_norm = LayerNorm(d)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, causal_conv: bool = False) -> torch.Tensor:
-        x = self.attn_norm(x + self.mha(x, x, mask)).to(self.dtype)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, causal_conv: bool = False,
+                kv_gather=None, conv_context=None) -> torch.Tensor:
+        """``kv_gather`` goes to the attention, ``conv_context`` to the conv
+        module (:func:`hifigan_tpu_torch.parallel.conformer_forward_seq_sharded`)."""
+        x = self.attn_norm(x + self.mha(x, x, mask, kv_gather)).to(self.dtype)
         x = self.ffn_norm(x + self.ffn2(torch.relu(self.ffn1(x)))).to(self.dtype)
-        return self.conv_norm(x + self.conv(x, causal_conv)).to(self.dtype)
+        return self.conv_norm(x + self.conv(x, causal_conv, conv_context)).to(self.dtype)
 
 
 class ChunkedConformer(nn.Module):

@@ -102,7 +102,9 @@ class MultiHeadAttention(nn.Module):
     and softmax are fp32; masked scores are float32's most negative value
     (not -inf, so a fully masked row attends uniformly, as in JAX); the
     probabilities are cast to ``dtype`` before the second product.  The
-    forward is a profiler range named ``attention``."""
+    forward is a profiler range named ``attention``.  ``kv_gather`` maps the
+    projected keys and values ``[B, Tk, heads, head_dim]`` before use (the
+    sequence-parallel encoder gathers them along time there)."""
 
     def __init__(self, features: int, num_heads: int, dtype=torch.float32, *, gen: torch.Generator):
         super().__init__()
@@ -115,9 +117,12 @@ class MultiHeadAttention(nn.Module):
         self.v = DenseGeneral((features,), heads, gen, dtype=dtype)
         self.out = DenseGeneral(heads, (features,), gen, dtype=dtype)
 
-    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tensor | None = None,
+                kv_gather=None) -> torch.Tensor:
         with torch.profiler.record_function("attention"):
             q, k, v = self.q(q_in), self.k(kv_in), self.v(kv_in)  # [B, T, heads, head_dim]
+            if kv_gather is not None:
+                k, v = kv_gather(k), kv_gather(v)
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(self.head_dim)
             if mask is not None:
                 scores = torch.where(mask, scores, torch.finfo(torch.float32).min)

@@ -68,11 +68,13 @@ def learning_rate(cfg: TrainConfig, count: int) -> float:
                                cfg.learning_rate / 100)
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float, norm: torch.Tensor | None = None) -> None:
     """Scale ``grads`` in place by ``max_norm / ‖grads‖`` when their global
     norm is at least ``max_norm`` (optax's rule: no 1e-6 in the divisor,
-    unlike ``torch.nn.utils.clip_grad_norm_``).  No host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    unlike ``torch.nn.utils.clip_grad_norm_``).  ``norm``: the global norm
+    when the caller has it (a sharded model's spans ranks).  No host sync."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -84,11 +86,14 @@ class ScheduledAdam:
     applied so far, and optional global-norm clipping first.  A parameter
     whose ``.grad`` is None is skipped (optax would decay its moments with a
     zero gradient): a caller that needs the decay sets a zero gradient.  On
-    the card it runs ``torch.optim``'s fused kernels."""
+    the card it runs ``torch.optim``'s fused kernels.  ``global_norm(params)``,
+    when set, gives the norm that clipping divides by (the tensor-parallel
+    step sets it: a sharded parameter's norm spans ranks)."""
 
     def __init__(self, params, schedule: Callable[[int], float], *, betas: tuple[float, float],
                  weight_decay: float = 0.0, grad_clip: float = 0.0):
         self.params, self.schedule, self.grad_clip, self.count = list(params), schedule, grad_clip, 0
+        self.global_norm: Callable | None = None
         fused = self.params[0].device.type == "cuda"
         kwargs = dict(lr=0.0, betas=betas, eps=1e-8, fused=fused)
         if weight_decay > 0:
@@ -102,7 +107,9 @@ class ScheduledAdam:
     def step(self) -> None:
         """Apply one update from each parameter's ``.grad``."""
         if self.grad_clip > 0:
-            clip_by_global_norm([p.grad for p in self.params if p.grad is not None], self.grad_clip)
+            params = [p for p in self.params if p.grad is not None]
+            norm = self.global_norm(params) if self.global_norm is not None else None
+            clip_by_global_norm([p.grad for p in params], self.grad_clip, norm)
         for group in self.adam.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adam.step()

@@ -57,14 +57,18 @@ def _mel_and_real(batch: dict, cfg: TrainConfig) -> tuple[torch.Tensor, torch.Te
     return mel, real[:, : mel.shape[-1] * cfg.mel.hop_length]
 
 
-def discriminator_phase(state: GanTrainState, real: torch.Tensor, fake: torch.Tensor, w) -> torch.Tensor:
-    """One discriminator update on ``(real, fake.detach())``; returns its loss."""
+def discriminator_phase(state: GanTrainState, real: torch.Tensor, fake: torch.Tensor, w,
+                        grad_sync: Optional[Callable] = None) -> torch.Tensor:
+    """One discriminator update on ``(real, fake.detach())``; returns its
+    loss.  ``grad_sync(optimiser)`` runs between the backward and the update."""
     discs = state.discriminators
     out_real, out_fake = discs(real), discs(fake.detach())
     d_loss = discriminator_loss(out_real["mpd_outputs"] + out_real["msd_outputs"],
                                 out_fake["mpd_outputs"] + out_fake["msd_outputs"], w.adversarial_type)
     state.disc_opt.zero_grad()
     d_loss.backward()
+    if grad_sync is not None:
+        grad_sync(state.disc_opt)
     state.disc_opt.step()
     return d_loss
 
@@ -137,7 +141,11 @@ def make_train_step(
     (:func:`hifigan_tpu_torch.train.device_data.make_device_sampler`): the
     step takes a ``torch.Generator`` in place of a batch, or a seed for one
     on the model's device, and draws each step's audio with it.  Metrics
-    are 0-dim fp32 tensors on the device (reading one waits for the step)."""
+    are 0-dim fp32 tensors on the device (reading one waits for the step).
+    ``grad_sync(optimiser)``, a keyword of the step, runs after each
+    backward and before each of the two updates: the data-parallel step
+    averages the gradients there
+    (:func:`hifigan_tpu_torch.parallel.make_sharded_train_step`)."""
     w = cfg.loss_weights
 
     def generate(vocoder, mel, batch):
@@ -147,7 +155,7 @@ def make_train_step(
             out = vocoder(mel, step=grc_step_reference)
         return out["waveform"][:, 0, :]
 
-    def one_step(state: GanTrainState, batch: dict) -> dict:
+    def one_step(state: GanTrainState, batch: dict, grad_sync) -> dict:
         voc, discs = state.vocoder, state.discriminators
         batch = _as_batch(batch, next(voc.parameters()).device)
         mel, real = _mel_and_real(batch, cfg)
@@ -156,11 +164,13 @@ def make_train_step(
         else:
             fake = generate(voc, mel, batch)
 
-        d_loss = discriminator_phase(state, real, fake, w)
+        d_loss = discriminator_phase(state, real, fake, w, grad_sync)
         # generator phase, against the updated discriminators
         total, metrics = generator_losses(discs, real, fake, audio_to_mel(fake, cfg), mel, w, deep_feature_matching)
         state.gen_opt.zero_grad()
         total.backward()
+        if grad_sync is not None:
+            grad_sync(state.gen_opt)
         state.gen_opt.step()
         state.step += 1
         return {"generator_loss": total.detach(), "discriminator_loss": d_loss.detach(),
@@ -176,8 +186,8 @@ def make_train_step(
             return [batch]
         return [{k: v[i] for k, v in batch.items()} for i in range(multi_steps)]
 
-    def step(state: GanTrainState, batch) -> tuple[GanTrainState, dict]:
-        window = [one_step(state, b) for b in batches(state, batch)]
+    def step(state: GanTrainState, batch, *, grad_sync: Optional[Callable] = None) -> tuple[GanTrainState, dict]:
+        window = [one_step(state, b, grad_sync) for b in batches(state, batch)]
         if len(window) == 1:
             return state, window[0]
         return state, {k: torch.stack([m[k] for m in window]).mean() for k in window[0]}

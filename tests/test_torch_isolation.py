@@ -6,7 +6,7 @@ train-unit-vocoder``, ``cli train-s2st``, ``cli info``, the S2ST model, the
 unit vocoder, the S2ST runtime, ``cli simulate``, ``cli eval``, ``cli
 eval-clone`` and the CTC judge) run on the card unless the caller asks for
 the CPU (``cli eval-s2st``, ``cli serve``, the app's vocoder route, engine
-and server and the waveform encoders too)."""
+and server, the waveform encoders and ``dryrun_multichip`` too)."""
 
 import ast
 import subprocess
@@ -140,3 +140,19 @@ def test_serving_without_a_card_raises(monkeypatch, tmp_path):
                   lambda: waveform_encoders.extract_mel_features(np.zeros(1024, np.float32))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
+
+
+def test_dryrun_multichip_without_a_card_raises(monkeypatch):
+    """``dryrun_multichip(1)`` needs a card; asking for more CUDA ranks than
+    cards raises too (NCCL places one rank on a card), before any process
+    starts."""
+    from hifigan_tpu_torch.entry import dryrun_multichip
+    from hifigan_tpu_torch.parallel import spawn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="NCCL places one rank on a card"):
+        spawn(print, 2, "cuda")
