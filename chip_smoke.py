@@ -165,6 +165,18 @@ Phases, each printing its own line:
      command without the launcher; dryrun_multichip(1) on the card, and
      dryrun_multichip(4, device="cpu"), four gloo processes on the card
      machine's CPU (a check of its torch.distributed, not a timing).
+ 16. bench (run before the traces): `cli bench` through cli.main, as a user
+     runs it, TF32 turned on before it: the root bench.py's five configs at
+     its shapes (the flagship, HiFi-GAN V1 and the cloning vocoder with its
+     embeddings extracted from the mel, bf16 at 8 x 256 frames; the GAN
+     train step at 4 x 8192 and the production step at 16 x 8192, 32 steps
+     a call from a 64-utterance formant bank on the card), timed by the
+     command's CUDA events; one stdout line with the JAX command's four
+     keys (a finite value above 0, vs_baseline = round(value / 50, 2)), a
+     stderr record of the five configs with no error and vs_prev_round
+     null, grc_step_bf16 launched 9 times a call of the flagship and the
+     conditioned configs, grc_step_f32 by none, and no GRC kernel by
+     HiFi-GAN V1 or the train steps.
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing anything.
@@ -1732,6 +1744,73 @@ def _check_parallel(directory: str) -> dict:
     return out
 
 
+# The bench phase: `cli bench`'s configs, the GRC kernels each must launch per
+# timed or warm-up call (bf16 forwards: the 9 MRF steps), and the JAX
+# command's stdout keys.
+BENCH_GRC_STEPS = {"flagship_odconv_grc_film": 9, "hifigan_v1": 0, "conditioned_auto_embeddings": 9,
+                   "gan_train_step": 0, "gan_train_step_production": 0}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def _check_bench() -> dict:
+    """Phase 16: ``cli bench`` through ``cli.main`` (``_cli``), its stdout
+    and stderr captured.  Its stdout is one line with the JAX command's four
+    keys, metric and unit, a finite value above 0 and ``vs_baseline =
+    round(value / 50, 2)``; its stderr's record holds the five configs, none
+    with an error, the card and ``vs_prev_round: null``.  Each config's
+    function is wrapped to set the GRC launch counts to 0 before it and read
+    them after it: the flagship and conditioned configs launch ``grc_step_bf16`` 9 times a
+    call (``INFER_CALLS + WARMUP`` calls), no config launches
+    ``grc_step_f32``, and HiFi-GAN V1 and the train steps launch none."""
+    from hifigan_tpu_torch import bench
+
+    per_config = {}
+
+    def counted(name, fn):
+        def run(device):
+            _reset_launches()
+            result = fn(device=device)
+            per_config[name] = dict(grc_kernel.launches)
+            return result
+        return run
+
+    configs = bench.CONFIGS
+    bench.CONFIGS = [(name, counted(name, fn)) for name, fn in configs]
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            _cli(["bench"])
+    finally:
+        bench.CONFIGS = configs
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"cli bench printed {len(lines)} stdout lines: {out.getvalue()[-2000:]}")
+    line = json.loads(lines[0])
+    value = line.get("value")
+    if (set(line) != BENCH_KEYS or line["metric"] != bench.METRIC or line["unit"] != "x_realtime"
+            or not isinstance(value, float) or not math.isfinite(value) or value <= 0
+            or line["vs_baseline"] != round(value / 50, 2)):
+        raise AssertionError(f"cli bench's stdout line: {lines[0]}")
+    records = [json.loads(r) for r in err.getvalue().splitlines() if r.startswith('{"configs"')]
+    if len(records) != 1:
+        raise AssertionError(f"cli bench's stderr: {err.getvalue()[-2000:]}")
+    record = records[0]
+    if (list(record["configs"]) != list(BENCH_GRC_STEPS) or record["vs_prev_round"] is not None
+            or any("error" in r for r in record["configs"].values())):
+        raise AssertionError(f"cli bench's stderr record: {json.dumps(record)[:2000]}")
+    calls = bench.INFER_CALLS + bench.WARMUP
+    want = {name: {"grc_step_bf16": steps * calls, "grc_step_f32": 0} for name, steps in BENCH_GRC_STEPS.items()}
+    if per_config != want:
+        raise AssertionError(f"cli bench's GRC launches {per_config}, want {want}")
+    # each kernel's launches a forward of the configs that run the GRC steps
+    # (the same in each, as checked just above)
+    per_forward = {kernel: per_config[name][kernel] // calls
+                   for name, steps in BENCH_GRC_STEPS.items() if steps for kernel in grc_kernel.launches}
+    return {"line": line, "record": record, "launches": per_config, "per_forward": per_forward, "wall_s": wall}
+
+
 # The serving phase: the app's stdlib server (what `cli serve` runs without
 # FastAPI) over an engine whose TTS routes mels through make_vocoder_synth of
 # a seeded create_train_state(TrainConfig()) checkpoint, bf16 (the default).
@@ -2156,14 +2235,15 @@ def _check_sees_taps(args, lo, dilation, want, dtype):
                          f"(k {args[5].shape[0]}, lo {lo}, dilation {dilation}, pre {tuple(args[0].shape)})")
 
 
-def _step_bound_ms(k, dtype):
-    """Least time for one step: read pre, write pre_out, read W2 and the
-    statistics, write the two sums; against 2*B*T*k*C*C operations at
-    PEAK_OPS_PER_S (fp32: three TF32 products each)."""
+def _step_bound_ms(k, dtype, batch=BATCH):
+    """Least time for one step at [batch, T_AUDIO, C]: read pre, write
+    pre_out, read W2 and the statistics, write the two sums; against
+    2*B*T*k*C*C operations at PEAK_OPS_PER_S (fp32: three TF32 products
+    each)."""
     es = torch.finfo(dtype).bits // 8
-    n = BATCH * T_AUDIO * C
-    nbytes = 2 * n * es + k * C * C * es + (4 * BATCH * C + C + 2 * BATCH * C) * 4
-    ops = 2 * BATCH * T_AUDIO * k * C * C
+    n = batch * T_AUDIO * C
+    nbytes = 2 * n * es + k * C * C * es + (4 * batch * C + C + 2 * batch * C) * 4
+    ops = 2 * batch * T_AUDIO * k * C * C
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS_PER_S[dtype]
 
 
@@ -2522,6 +2602,24 @@ def main() -> int:
           f"{par['cli_walls']['plain']:.2f} s plain; dryrun_multichip(1) {par['dryrun_card_s']:.2f} s, "
           f"dryrun_multichip(4, cpu) {par['dryrun_gloo_s']:.2f} s wall")
 
+    # 16. cli bench: the root bench.py's five configs on the card through
+    # cli.main, its contract lines and each config's GRC launches; before any
+    # trace
+    bench_run = _check_bench()
+    bench_configs = bench_run["record"]["configs"]
+    print(f"bench: {card_line}; cli bench exit 0 in {bench_run['wall_s']:.2f} s wall: "
+          f"{json.dumps(bench_run['line'])}; flagship 8 x 256 bf16 "
+          f"{bench_configs['flagship_odconv_grc_film']['ms_per_call']:.3f} ms a call "
+          f"(rtf {bench_configs['flagship_odconv_grc_film']['rtf']:.1f}); hifigan_v1 "
+          f"{bench_configs['hifigan_v1']['ms_per_call']:.3f} ms (rtf {bench_configs['hifigan_v1']['rtf']:.1f}); "
+          f"conditioned_auto_embeddings {bench_configs['conditioned_auto_embeddings']['ms_per_call']:.3f} ms "
+          f"(rtf {bench_configs['conditioned_auto_embeddings']['rtf']:.1f}); gan_train_step 4 x 8192 "
+          f"{bench_configs['gan_train_step']['ms_per_step']:.3f} ms a step; gan_train_step_production 16 x 8192, "
+          f"32 steps a call, {bench_configs['gan_train_step_production']['ms_per_step']:.3f} ms a step "
+          f"({bench_configs['gan_train_step_production']['audio_sec_per_sec']:.1f} audio-s trained a second); "
+          f"each a window of calls between CUDA events over its calls; GRC launches by config {json.dumps(bench_run['launches'])}; "
+          f"device {json.dumps(bench_run['record']['device'])}")
+
     # 13. traces: where the device time goes, in the forward, the cloning call,
     # a train step and an S2ST session.  Last, after every timing: once the
     # profiler has traced the card, the host's launches may stay slower.
@@ -2593,7 +2691,8 @@ def main() -> int:
             "replaces": "hifigan_tpu/ops/pallas/grc_kernel.py:176",
             "launches": launches[name],
             "launches_by_path": {"flagship_forward": launches[name], "serving_synth": serve["launches"][name],
-                                 "sharded_train_step": par["grc_launches"][name]},
+                                 "sharded_train_step": par["grc_launches"][name],
+                                 "cli_bench_forward": bench_run["per_forward"][name]},
             "max_abs_err": worst[dtype][0],
             "ms": sum(r["ms"] for r in dtype_rows),
             "plain_ms": sum(r["plain_ms"] for r in dtype_rows),

@@ -1,6 +1,7 @@
 """Command-line interface of the port: ``train``, ``train-encoders``,
 ``train-clone``, ``train-unit-vocoder``, ``train-s2st``, ``eval``,
-``eval-clone``, ``eval-s2st``, ``simulate``, ``info`` and ``serve``.
+``eval-clone``, ``eval-s2st``, ``simulate``, ``info``, ``serve`` and
+``bench``.
 
     python -m hifigan_tpu_torch.cli train --max_steps 1000 --checkpoint_dir ckpt [--bf16]
     python -m hifigan_tpu_torch.cli train --tiny --device cpu --max_steps 2 --checkpoint_dir /tmp/t
@@ -19,6 +20,7 @@
     python -m hifigan_tpu_torch.cli simulate --tiny --device cpu [--decode hmt --hmt_transition learned]
     python -m hifigan_tpu_torch.cli info [--device cpu]
     python -m hifigan_tpu_torch.cli serve [--config app.json] [--port 8000] [--device cpu]
+    python -m hifigan_tpu_torch.cli bench [--device cpu]
 
 Counterpart of ``hifigan_tpu/cli.py``'s commands of the same names, on the
 card unless ``--device cpu``.  Every command runs cuDNN and cuBLAS without
@@ -87,7 +89,9 @@ uvicorn where FastAPI is installed, else the standard library's), its
 settings from a JSON ``--config`` with the JAX package's YAML keys; its TTS
 runs the vocoder of ``models.vocoder_checkpoint`` (a directory of
 ``<step>.pt`` train states; by default the first of ``FLAGSHIP_RUNS`` that
-exists, as JAX's ``cli serve`` picks it).
+exists, as JAX's ``cli serve`` picks it).  ``bench`` times the root
+``bench.py``'s five configs on the card (:mod:`hifigan_tpu_torch.bench`) and
+prints its one-line JSON contract.
 The JAX package's orbax checkpoints are carried over with
 ``load_jax_params`` and the ``load_jax_*_state`` functions.
 """
@@ -653,6 +657,16 @@ def cmd_info(args) -> None:
     cfg = GeneratorConfig()
     info = model_info(build_generator(cfg, torch.float32, args.device, seed=0), cfg)
     print(json.dumps({k: info[k] for k in ("total_parameters", "parameter_mb", "per_module_parameters")}, indent=2))
+
+
+def cmd_bench(args) -> None:
+    """The RTF benchmark (:mod:`hifigan_tpu_torch.bench`): exits with its
+    code when that is not 0."""
+    from hifigan_tpu_torch import bench
+
+    code = bench.main(args.device)
+    if code:
+        raise SystemExit(code)
 
 
 # where the port's files live beside the JAX package's trained runs, best first
@@ -1303,6 +1317,10 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--port", type=int, default=0, help="the port (0: the config's)")
     v.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
     v.set_defaults(fn=cmd_serve)
+
+    b = sub.add_parser("bench", help="run the RTF benchmark")
+    b.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")
+    b.set_defaults(fn=cmd_bench)
 
     i = sub.add_parser("info", help="the flagship generator's parameter breakdown")
     i.add_argument("--device", default="cuda", help="torch device; the card unless 'cpu'")

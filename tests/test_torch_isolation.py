@@ -6,9 +6,11 @@ train-unit-vocoder``, ``cli train-s2st``, ``cli info``, the S2ST model, the
 unit vocoder, the S2ST runtime, ``cli simulate``, ``cli eval``, ``cli
 eval-clone`` and the CTC judge) run on the card unless the caller asks for
 the CPU (``cli eval-s2st``, ``cli serve``, the app's vocoder route, engine
-and server, the waveform encoders and ``dryrun_multichip`` too)."""
+and server, the waveform encoders, ``dryrun_multichip``, ``cli bench`` and
+its configs' functions too)."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -156,3 +158,21 @@ def test_dryrun_multichip_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="NCCL places one rank on a card"):
         spawn(print, 2, "cuda")
+
+
+def test_bench_without_a_card_exits_3(monkeypatch, capsys):
+    """``cli bench`` (``--device cuda`` by default) exits 3 with the contract
+    line's ``value`` null and runs no config; each config's function raises;
+    the source scan covers ``bench.py`` and ``utils/benchit.py``."""
+    from hifigan_tpu_torch import bench
+
+    package = ROOT / "hifigan_tpu_torch"
+    assert {package / "bench.py", package / "utils" / "benchit.py"} <= set(SOURCES)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_:
+        cli.main(["bench"])
+    assert exit_.value.code == 3 and json.loads(capsys.readouterr().out)["value"] is None
+    for fn in (bench.bench_flagship, bench.bench_hifigan_v1, bench.bench_conditioned, bench.bench_train_step,
+               bench.bench_train_step_fused, bench.bench_train_step_production):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
